@@ -8,12 +8,12 @@ but has no SEG support, no dose warping, and no DICOM writers):
 2. fraction image (anatomy shifted) + fraction RTDOSE on its grid
 3. demons deformable registration fraction -> planning
 4. Deformable.update_dose warps the fraction dose onto the planning
-   grid (Pallas tile-slab warp kernels); accumulate_dose sums the
+   grid (ops/warp.py); accumulate_dose sums the
    plan + warped fraction as a first-class Dose
 5. DVH statistics on the accumulated dose over the SEG-derived ROI
 6. export: accumulated dose as RTDOSE, contours as RTSTRUCT + SEG
 
-Run: python examples/adaptive_rt.py   (CPU or TPU)
+Run: python examples/adaptive_rt.py   (CPU or GPU)
 """
 
 import os

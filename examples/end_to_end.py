@@ -4,7 +4,7 @@ Covers the five BASELINE benchmark configs in one script:
 ingest -> FFS volume, RTSTRUCT -> device mask, resample/filter, rigid
 registration, mesh pipeline, plus deformable + dose analytics.
 
-Run: python examples/end_to_end.py   (CPU or TPU)
+Run: python examples/end_to_end.py   (CPU or GPU)
 """
 
 import os

@@ -1,12 +1,13 @@
 """Registration walkthrough: every registration family end-to-end.
 
-Runs on CPU by default (set MIA_REG_ON_TPU=1 for the chip). Covers the
+Runs on CPU by default (MIA_REG_ON_DEVICE=1 runs it on the default
+backend). Covers the
 surfaces a reference user migrates to:
 
 1. rigid 6-DoF intensity registration, CT<->CT (MSE) and CT<->"MR"
    (Mattes MI) — `Rigid.compute_intensity`
-2. an oblique 45-degree reslice through the staircase-shear kernel
-   path — `Rigid.update_rotation` / `affine_resample`
+2. an oblique 45-degree reslice — `Rigid.update_rotation` /
+   `affine_resample`
 3. elastix-parity multi-resolution Mattes-MI B-spline —
    `DeformableJAX.elastix` / `elastix_registration`
 4. demons with a coarse-to-fine pyramid — `Deformable.compute_demons`
@@ -22,7 +23,7 @@ import tempfile
 sys.path.insert(0, os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
 
-if os.environ.get("MIA_REG_ON_TPU", "0") != "1":
+if os.environ.get("MIA_REG_ON_DEVICE", "0") != "1":
     import jax
     jax.config.update("jax_platforms", "cpu")
 
@@ -79,7 +80,7 @@ def main():
           f"(expect ~[-2, 3, 0])")
     assert np.allclose(rigid_mi.matrix[:3, 3], [-2, 3, 0], atol=1.0)
 
-    # 2. oblique 45-degree reslice (staircase-shear kernel on TPU)
+    # 2. oblique 45-degree reslice
     img = Data.image[cts[0]]
     img.update_rotation(r_z=45.0)
     sl = img.retrieve_array_plane("Axial")

@@ -1,6 +1,6 @@
-"""medicalimageanalysis_tpu — TPU-native medical-volume framework.
+"""medicalimageanalysis_tpu — medical-volume framework on JAX.
 
-A from-scratch JAX/XLA/Pallas rebuild of the capabilities of
+A from-scratch JAX/XLA rebuild of the capabilities of
 caleb-oconnor/MedicalImageAnalysis (see SURVEY.md). Public API mirrors the
 reference package (reference medicalimageanalysis/__init__.py:1-10):
 

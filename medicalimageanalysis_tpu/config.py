@@ -29,14 +29,10 @@ class MiaConfig:
     model_to_mask_pad_voxels: int = 5
     icp_landmark_divisor: int = 10
     bspline_control_spacing_mm: float = 50.0
-    # TPU execution knobs (new; no reference counterpart)
+    # device execution knobs (new; no reference counterpart)
     device_dtype: str = "float32"
     jit_ingest: bool = True
     default_mesh_axes: tuple = ("data", "space")
-    # reslice_transform via the 3-pass Pallas shear warp (32x on v5e;
-    # shear-warp factorization, ~0.6%-of-sigma interior delta vs the
-    # exact trilinear gather — docs/PERF.md). Off = bit-stable default.
-    use_shear_warp: bool = False
 
 
 config = MiaConfig()

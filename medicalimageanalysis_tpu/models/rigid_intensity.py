@@ -1,5 +1,5 @@
 """Intensity-based rigid / similarity / affine registration
-(differentiable, TPU-first).
+(differentiable, on device).
 
 No reference counterpart (the reference only has mesh ICP); this is the
 framework's fast path for the BASELINE "rigid registration CT<->CT pair
@@ -31,6 +31,12 @@ __all__ = ["register_rigid_intensity", "register_rigid_intensity_batch",
            "pose_to_matrix"]
 
 
+def _mm(a, b):
+    """float32 geometry product at full precision: under the GPU's
+    default TF32 a coordinate of ~256 mm picks up errors of ~0.1 mm."""
+    return jnp.matmul(a, b, precision=jax.lax.Precision.HIGHEST)
+
+
 def _rot_mats(angles):
     ax, ay, az = angles[0], angles[1], angles[2]
     cx, sx = jnp.cos(ax), jnp.sin(ax)
@@ -39,7 +45,7 @@ def _rot_mats(angles):
     rx = jnp.array([[1, 0, 0], [0, cx, -sx], [0, sx, cx]])
     ry = jnp.array([[cy, 0, sy], [0, 1, 0], [-sy, 0, cy]])
     rz = jnp.array([[cz, -sz, 0], [sz, cz, 0], [0, 0, 1]])
-    return rz @ ry @ rx
+    return _mm(_mm(rz, ry), rx)
 
 
 def pose_to_matrix(pose, center):
@@ -69,13 +75,13 @@ def pose_to_matrix(pose, center):
                        [0.0, 0.0, 1.0]])
         H = H.at[0, 1].set(pose[9]).at[0, 2].set(pose[10]) \
              .at[1, 2].set(pose[11])
-        M = R @ S @ H
+        M = _mm(_mm(R, S), H)
     else:
         raise ValueError(f"pose length must be 6/7/12, got {n}")
     c = jnp.asarray(center)
     m = jnp.eye(4)
     m = m.at[:3, :3].set(M)
-    m = m.at[:3, 3].set(c + t - M @ c)
+    m = m.at[:3, 3].set(c + t - _mm(M, c))
     return m
 
 
@@ -106,7 +112,7 @@ _MI_BINS = 32
 def _soft_bin_weights(vals, bins):
     """(N, bins) triangular soft-assignment weights for vals in [0, 1]
     (Parzen window, piecewise-linear -> differentiable). Each value hits
-    <= 2 bins; the dense matrix trades memory for an MXU matmul."""
+    <= 2 bins; the dense matrix trades memory for one matmul."""
     centers = jnp.arange(bins, dtype=jnp.float32)
     u = jnp.clip(vals, 0.0, 1.0) * (bins - 1)
     return jnp.maximum(0.0, 1.0 - jnp.abs(u[:, None] - centers[None, :]))
@@ -119,7 +125,7 @@ def _metric_loss(metric, vals, ref_vals, inside, bins=None):
     'ncc'  — 1 - (global normalized cross-correlation)^2;
     'mi'   — negative mutual information from a soft-binned joint
              histogram: W_ref^T @ W_mov is one (bins, N) x (N, bins)
-             MXU matmul, exact-gradient through the Parzen weights.
+             matmul, exact-gradient through the Parzen weights.
              Values must be pre-normalized to [0, 1] (the register_*
              entry points' `normalize=True` does this). Cross-modality
              (CT<->MR) metric, BASELINE config #4."""
@@ -156,7 +162,7 @@ _MI_CHUNK = 1 << 21
 
 
 def _mi_joint(v, r, w, bins=None):
-    """(bins, bins) soft joint histogram. Small N: one MXU matmul.
+    """(bins, bins) soft joint histogram. Small N: one matmul.
     Large N: lax.scan over _MI_CHUNK-value chunks with jax.checkpoint
     so neither pass materializes the (N, bins) weight matrices."""
     B = bins or _MI_BINS
@@ -164,7 +170,7 @@ def _mi_joint(v, r, w, bins=None):
     if N <= _MI_CHUNK:
         Wr = _soft_bin_weights(r, B) * w[:, None]
         Wm = _soft_bin_weights(v, B)
-        return Wr.T @ Wm
+        return _mm(Wr.T, Wm)
     C = -(-N // _MI_CHUNK)
     pad = C * _MI_CHUNK - N
     vp = jnp.pad(v, (0, pad))
@@ -176,7 +182,7 @@ def _mi_joint(v, r, w, bins=None):
         vc, rc, wc = xs
         Wr = _soft_bin_weights(rc, B) * wc[:, None]
         Wm = _soft_bin_weights(vc, B)
-        return acc + Wr.T @ Wm, None
+        return acc + _mm(Wr.T, Wm), None
 
     xs = (vp.reshape(C, _MI_CHUNK), rp.reshape(C, _MI_CHUNK),
           wp.reshape(C, _MI_CHUNK))
@@ -185,17 +191,16 @@ def _mi_joint(v, r, w, bins=None):
 
 
 @partial(jax.jit,
-         static_argnames=("steps", "stride", "use_pallas", "metric"))
+         static_argnames=("steps", "stride", "metric"))
 def _register_level(ref_vol, mov_vol, ref_pix2pos, mov_pos2pix, center,
                     pose0, lr, steps, stride, intensity_scale=1.0,
-                    use_pallas=True, metric="mse"):
+                    metric="mse"):
     """One pyramid level of Adam descent on the selected masked
     similarity metric (see :func:`_metric_loss`).
 
     The level's volumes are first DOWNSAMPLED by `stride` (separable
-    MXU contractions) and the loss evaluates on the full contiguous
-    low-res grid — strided sampling of the full-res volume destroys
-    gather locality on TPU (measured 10x slower).
+    matrix contractions at Precision.HIGHEST) and the loss evaluates on
+    the full contiguous low-res grid, which keeps the gathers local.
 
     Accepts any input dtype (int16 CT passes at half the f32 transfer
     cost — the host->device link is the bottleneck, not the cast)."""
@@ -214,11 +219,12 @@ def _register_level(ref_vol, mov_vol, ref_pix2pos, mov_pos2pix, center,
             mz = jnp.asarray(_interp_matrix(oz, Z, Z / oz))
             my = jnp.asarray(_interp_matrix(oy, Y, Y / oy))
             mx = jnp.asarray(_interp_matrix(ox, X, X / ox))
-            out = jnp.einsum("ij,jyx->iyx", mz, v,
+            hi = jax.lax.Precision.HIGHEST
+            out = jnp.einsum("ij,jyx->iyx", mz, v, precision=hi,
                              preferred_element_type=jnp.float32)
-            out = jnp.einsum("kj,zjx->zkx", my, out,
+            out = jnp.einsum("kj,zjx->zkx", my, out, precision=hi,
                              preferred_element_type=jnp.float32)
-            out = jnp.einsum("lj,zyj->zyl", mx, out,
+            out = jnp.einsum("lj,zyj->zyl", mx, out, precision=hi,
                              preferred_element_type=jnp.float32)
             return out, (Z, Y, X), (oz, oy, ox)
 
@@ -227,55 +233,31 @@ def _register_level(ref_vol, mov_vol, ref_pix2pos, mov_pos2pix, center,
         # low-res pixel i maps to full-res pixel i * (full/low)
         scale_ref = jnp.diag(jnp.asarray(
             [X / ox, Y / oy, Z / oz, 1.0], jnp.float32))
-        ref_pix2pos = ref_pix2pos @ scale_ref
+        ref_pix2pos = _mm(ref_pix2pos, scale_ref)
         inv_scale = jnp.diag(jnp.asarray(
             [mxo / MXf, myo / MYf, mzo / MZf, 1.0], jnp.float32))
-        mov_pos2pix = inv_scale @ mov_pos2pix
+        mov_pos2pix = _mm(inv_scale, mov_pos2pix)
         stride = (1, 1, 1)
 
     shape = ref_vol.shape
     scale = jnp.asarray(_pose_scale(pose0.shape[0]))
 
-    if use_pallas and jax.default_backend() == "tpu":
-        # Pallas tile-slab warp sampler: exact trilinear with an
-        # analytic coordinate VJP computed in the forward kernel pass
-        # (no re-gather in the backward; the XLA computed-index gather
-        # runs at only ~14 M pts/s on v5e — docs/PERF.md). Callers set
-        # use_pallas=False when the level's starting pose exceeds the
-        # kernel's slab windows (large initial rotations) — the kernel
-        # would background-overflow with zero gradients there
-        # (self-review finding); the XLA branch is slow but unbounded.
-        from ..ops.pallas_warp import affine_coords, make_warp_sampler
-        sample_mov = make_warp_sampler(mov_vol, 0.0)
-        MZ, MY, MX = mov_vol.shape
-        ref_valsv = ref_vol  # the loss grid IS the low-res ref volume
+    from ..ops.resample import make_trilinear_sampler
 
-        def loss_fn(params):
-            m = pose_to_matrix(params * scale, center)          # ref->mov
-            P = mov_pos2pix @ m @ ref_pix2pos   # ref pixel -> mov pixel
-            cz, cy, cx = affine_coords(P, shape)
-            vals = sample_mov(cz, cy, cx)
-            inside = ((cx >= 0) & (cx <= MX - 1) & (cy >= 0)
-                      & (cy <= MY - 1) & (cz >= 0)
-                      & (cz <= MZ - 1)).astype(jnp.float32)
-            return _metric_loss(metric, vals, ref_valsv, inside)
-    else:
-        from ..ops.resample import make_trilinear_sampler
+    coords_pix = _sample_grid(shape, stride)                # (N, 3) xyz
+    ones = jnp.ones((coords_pix.shape[0], 1), jnp.float32)
+    coords_h = jnp.concatenate([coords_pix, ones], axis=1)
+    ref_pos = _mm(coords_h, ref_pix2pos.T)                  # (N, 4)
+    ref_vals = _trilinear_flat(ref_vol, coords_pix)
+    sample_mov = make_trilinear_sampler(mov_vol, 0.0)
 
-        coords_pix = _sample_grid(shape, stride)                # (N, 3) xyz
-        ones = jnp.ones((coords_pix.shape[0], 1), jnp.float32)
-        coords_h = jnp.concatenate([coords_pix, ones], axis=1)
-        ref_pos = coords_h @ ref_pix2pos.T                      # (N, 4)
-        ref_vals = _trilinear_flat(ref_vol, coords_pix)
-        sample_mov = make_trilinear_sampler(mov_vol, 0.0)
-
-        def loss_fn(params):
-            m = pose_to_matrix(params * scale, center)          # ref->mov
-            mov_pos = ref_pos @ m.T                             # (N, 4)
-            mov_pix = mov_pos @ mov_pos2pix.T
-            vals = sample_mov(mov_pix[:, :3])
-            inside = _inside_mask(mov_vol.shape, mov_pix[:, :3])
-            return _metric_loss(metric, vals, ref_vals, inside)
+    def loss_fn(params):
+        m = pose_to_matrix(params * scale, center)          # ref->mov
+        mov_pos = _mm(ref_pos, m.T)                         # (N, 4)
+        mov_pix = _mm(mov_pos, mov_pos2pix.T)
+        vals = sample_mov(mov_pix[:, :3])
+        inside = _inside_mask(mov_vol.shape, mov_pix[:, :3])
+        return _metric_loss(metric, vals, ref_vals, inside)
 
     opt = optax.adam(lr)
 
@@ -316,7 +298,7 @@ def register_rigid_intensity_batch(refs, movs, ref_pix2pos, mov_pos2pix,
     A single chip runs pairs back-to-back inside ``lax.map`` (no
     per-pair dispatch); with ``mesh`` (a ('data', 'space') Mesh from
     parallel.mesh.make_mesh) the pair axis is sharded over 'data' via
-    shard_map, so a v5e-8 runs 8 independent descents concurrently —
+    shard_map, so an 8-device mesh runs 8 independent descents at once —
     the batch-of-volumes scaling design from SURVEY §2.11. P must be
     divisible by the 'data' axis size; all pairs share one volume shape.
 
@@ -384,69 +366,27 @@ def register_rigid_intensity_batch(refs, movs, ref_pix2pos, mov_pos2pix,
                         "bins, weakening the registration",
                         stacklevel=2)
 
-    from ..ops.pallas_warp import fits_warp_caps
-
-    def _all_fit(ps):
-        for p in range(P_n):
-            m_now = np.asarray(pose_to_matrix(ps[p], centers[p]))
-            P_now = (np.asarray(mov_pos2pix[p]) @ m_now
-                     @ np.asarray(ref_pix2pos[p]))
-            if not fits_warp_caps(P_now, vol_x=movs.shape[-1]):
-                return False
-        return True
-
     for stride, steps, lr in levels:
-        # capture-range guard over ALL pairs (see register_rigid_
-        # intensity): one pair beyond the slab windows demotes the
-        # level to the unbounded XLA sampler
-        use_pallas = _all_fit(poses)
-
         def level(r, m, rp, mp, c, p0):
             def one(args):
                 ri, mi, rpi, mpi, ci, pi = args
                 pose, ls = _register_level(
                     ri, mi, rpi, mpi, ci, pi, jnp.float32(lr),
                     int(steps), (int(stride),) * 3, scale,
-                    use_pallas=use_pallas, metric=metric)
+                    metric=metric)
                 return pose, ls[-1]
             return jax.lax.map(one, (r, m, rp, mp, c, p0))
 
         if mesh is not None:
             from jax.sharding import PartitionSpec as P
 
-            from ..parallel.mesh import shard_map_nocheck
             spec = P("data")
-            level = shard_map_nocheck(
-                level, mesh,
+            level = jax.shard_map(
+                level, mesh=mesh,
                 in_specs=(spec, spec, spec, spec, spec, spec),
                 out_specs=(spec, spec))
-        poses_in = poses
         poses, losses = jax.jit(level)(refs, movs, ref_pix2pos,
-                                       mov_pos2pix, centers, poses_in)
-        if use_pallas and not _all_fit(poses):
-            # a pair walked past the slab caps mid-level: redo the
-            # level on the unbounded XLA sampler (review finding)
-            def level2(r, m, rp, mp, c, p0):
-                def one(args):
-                    ri, mi, rpi, mpi, ci, pi = args
-                    pose1, ls = _register_level(
-                        ri, mi, rpi, mpi, ci, pi, jnp.float32(lr),
-                        int(steps), (int(stride),) * 3, scale,
-                        use_pallas=False, metric=metric)
-                    return pose1, ls[-1]
-                return jax.lax.map(one, (r, m, rp, mp, c, p0))
-
-            if mesh is not None:
-                from jax.sharding import PartitionSpec as P
-
-                from ..parallel.mesh import shard_map_nocheck
-                spec = P("data")
-                level2 = shard_map_nocheck(
-                    level2, mesh, in_specs=(spec,) * 6,
-                    out_specs=(spec, spec))
-            poses, losses = jax.jit(level2)(refs, movs, ref_pix2pos,
-                                            mov_pos2pix, centers,
-                                            poses_in)
+                                       mov_pos2pix, centers, poses)
     return np.asarray(poses), np.asarray(losses)
 
 
@@ -527,36 +467,12 @@ def register_rigid_intensity(reference_image, moving_image, pose0=None,
     losses_all = []
     refj = jnp.asarray(ref)
     movj = jnp.asarray(mov)
-    from ..ops.pallas_warp import fits_warp_caps
-
-    def _fits(p):
-        m_now = np.asarray(pose_to_matrix(p, jnp.asarray(center)))
-        P_now = np.asarray(mov_pos2pix) @ m_now @ np.asarray(ref_pix2pos)
-        return bool(fits_warp_caps(P_now, vol_x=mov.shape[-1]))
-
     for stride, steps, lr in levels:
-        # capture-range guard: if the level's STARTING pose maps a tile
-        # beyond the Pallas slab windows (initial rotations beyond
-        # ~10 deg), run that level on the unbounded XLA sampler
-        pose_in = pose
-        use_pallas = _fits(pose_in)
         pose, losses = _register_level(
             refj, movj, jnp.asarray(ref_pix2pos),
-            jnp.asarray(mov_pos2pix), jnp.asarray(center), pose_in,
+            jnp.asarray(mov_pos2pix), jnp.asarray(center), pose,
             jnp.float32(lr), int(steps), (stride, stride, stride),
-            jnp.float32(intensity_scale), use_pallas=use_pallas,
-            metric=metric)
-        if use_pallas and not _fits(pose):
-            # the descent WALKED past the slab caps mid-level (no
-            # overflow sync exists under jit): redo this level on the
-            # unbounded XLA sampler from the level's starting pose
-            # (round-2 review finding)
-            pose, losses = _register_level(
-                refj, movj, jnp.asarray(ref_pix2pos),
-                jnp.asarray(mov_pos2pix), jnp.asarray(center), pose_in,
-                jnp.float32(lr), int(steps), (stride, stride, stride),
-                jnp.float32(intensity_scale), use_pallas=False,
-                metric=metric)
+            jnp.float32(intensity_scale), metric=metric)
         losses_all.append(np.asarray(losses))
 
     matrix = np.asarray(pose_to_matrix(pose, jnp.asarray(center)),

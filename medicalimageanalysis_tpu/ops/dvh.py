@@ -1,6 +1,6 @@
 """Dose-volume-histogram reductions (device).
 
-TPU-native replacement for the reference's per-ROI numpy percentile /
+Device replacement for the reference's per-ROI numpy percentile /
 binning loop (reference structure/dose.py:774-816): one jitted program
 computes Dmin/Dmax/Dmean/Dmedian/Dstd, all D1..D99 percentiles, and the
 VS{d}Gy percent/cc bins from a masked dose array — pure sorts and
@@ -16,10 +16,23 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-__all__ = ["dvh_statistics", "D_VALUES"]
+__all__ = ["dvh_statistics", "count_below", "D_VALUES"]
 
 D_VALUES = (1, 2, 5, 10, 15, 20, 25, 30, 35, 40, 45, 50, 55, 60, 65, 70,
             75, 80, 85, 90, 95, 98, 99)
+
+
+@jax.jit
+def count_below(dose, thresholds, valid=None):
+    """Cumulative DVH counts: for every threshold t, the number of
+    valid dose values < t (int32, exact). One sort plus a binary search
+    per threshold; invalid values sort past every threshold."""
+    dose = jnp.asarray(dose, jnp.float32).ravel()
+    if valid is not None:
+        dose = jnp.where(jnp.asarray(valid).ravel() > 0, dose, jnp.inf)
+    return jnp.searchsorted(jnp.sort(dose),
+                            jnp.asarray(thresholds, jnp.float32),
+                            side="left").astype(jnp.int32)
 
 
 @partial(jax.jit, static_argnames=("n_bins", "increment"))

@@ -17,9 +17,9 @@ transform is the min-plus convolution
 evaluated brute-force (O(L^2) per line). The classic O(L)
 lower-envelope algorithm (Felzenszwalb-Huttenlocher) is inherently
 sequential with a data-dependent stack — hostile to XLA — while the
-min-plus form is a dense broadcast+reduce the TPU VPU eats: for
-clinical volumes (L <= 512) the arithmetic is ~L^2 * lines * 3 axes
-~ 1e10-1e11 fused flops, milliseconds on a v5e. Exactness is
+min-plus form is a dense broadcast+reduce XLA fuses: for clinical
+volumes (L <= 512) the arithmetic is ~L^2 * lines * 3 axes ~ 1e10-1e11
+fused flops. Exactness is
 inherited from separability: each pass takes squared distances from
 the previous pass, so the final value is the true
 min over feature voxels of sum_axis (s_axis * delta_axis)^2 (same
@@ -171,8 +171,8 @@ def _order_stat(keys, valid, rank):
     """Exact ``rank``-th smallest (1-indexed) uint32 key among the
     valid entries. Binary search over the key range: 32 fused
     masked-count passes instead of a full sort (the sort was the
-    surface-panel hot spot — 2M-element jnp.sort is tens of ms on
-    TPU, the counts are HBM-streaming microseconds). Returns the key;
+    surface-panel hot spot; the counts are streaming passes).
+    Returns the key;
     it is always one actually present (counts only change at present
     keys)."""
     target = rank

@@ -1,9 +1,9 @@
 """Volume filtering kernels: Gaussian, morphology, windowing, threshold.
 
-TPU-native replacements for the scipy/skimage/SimpleITK filter calls in
+Device replacements for the scipy/skimage/SimpleITK filter calls in
 the reference (reference utils/image/threshold.py:17-49,
 utils/deformable/simpleitk.py:58-74). Separable Gaussian runs as three
-MXU contractions; morphology as ``lax.reduce_window`` min/max pools —
+matrix contractions; morphology as ``lax.reduce_window`` min/max pools —
 both batched over volumes with vmap.
 """
 
@@ -38,7 +38,7 @@ def gauss_taps(sigma_vox, dtype=np.float32):
 
 def _gauss_kernel_matrix(n, sigma_vox, dtype=np.float32):
     """(n, n) Toeplitz Gaussian matrix: out = G @ x along one axis.
-    Dense so XLA runs it on the MXU; truncated at 4 sigma."""
+    Dense so XLA runs it as a matrix product; truncated at 4 sigma."""
     k64, radius = gauss_taps(sigma_vox, dtype=np.float64)
     offsets = np.arange(-radius, radius + 1)
     k = k64
@@ -52,11 +52,13 @@ def _gauss_kernel_matrix(n, sigma_vox, dtype=np.float32):
 
 @jax.jit
 def _separable3(vol, mz, my, mx):
-    out = jnp.einsum("ij,jyx->iyx", mz, vol,
+    # HIGHEST: TF32 taps shift a smoothed HU value by whole units
+    hi = lax.Precision.HIGHEST
+    out = jnp.einsum("ij,jyx->iyx", mz, vol, precision=hi,
                      preferred_element_type=jnp.float32)
-    out = jnp.einsum("kj,zjx->zkx", my, out,
+    out = jnp.einsum("kj,zjx->zkx", my, out, precision=hi,
                      preferred_element_type=jnp.float32)
-    out = jnp.einsum("lj,zyj->zyl", mx, out,
+    out = jnp.einsum("lj,zyj->zyl", mx, out, precision=hi,
                      preferred_element_type=jnp.float32)
     return out
 
@@ -305,14 +307,14 @@ def _aniso_core(vol, sp2_inv, kappa, time_step, iterations,
 def anisotropic_diffusion(volume, iterations=5, kappa=20.0,
                           time_step=None, spacing_xyz=(1.0, 1.0, 1.0),
                           conductance="exp"):
-    """Perona-Malik edge-preserving smoothing — the TPU-native twin of
+    """Perona-Malik edge-preserving smoothing — the device twin of
     ITK's GradientAnisotropicDiffusionImageFilter (the MR denoising
     front-end the reference's SimpleITK stack ships but never
     exposes). Per iteration, each axis' forward-difference flux is
     gated by a conductance of the local gradient (``'exp'`` — ITK's
     default — or ``'reciprocal'``), so noise diffuses while edges
     (|dI| >> kappa) do not. The whole loop is one jit (a fori_loop of
-    shifted adds — pure VPU stencils).
+    shifted adds — elementwise stencils).
 
     ``kappa``: physical gradient magnitude (intensity per mm — the
     conductance gates on df/spacing, so the edge threshold is
@@ -366,7 +368,7 @@ def _curvature_core(vol, sp_j, time_step, iterations):
 
 def curvature_flow(volume, iterations=5, time_step=0.05,
                    spacing_xyz=(1.0, 1.0, 1.0)):
-    """Level-set curvature flow denoising — the TPU-native twin of
+    """Level-set curvature flow denoising — the device twin of
     ITK's CurvatureFlowImageFilter: each iso-intensity surface moves
     with speed proportional to its mean curvature (dI/dt = kappa
     |grad I|), smoothing noise while leaving straight edges in place.

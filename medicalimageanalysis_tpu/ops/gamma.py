@@ -11,7 +11,7 @@ planned one: every voxel gets
 
 and a plan "passes" where gamma <= 1.
 
-TPU-native formulation: the eval dose is resampled ONCE onto a fine
+Device formulation: the eval dose is resampled ONCE onto a fine
 sub-voxel grid aligned with the reference grid (sub-voxel search is
 what makes gamma exact-ish; AAPM TG-218 recommends an interpolation
 step <= dta/3). Every fine-grid search offset o then decomposes as
@@ -266,7 +266,7 @@ def upsample_to_fine(eval_on_ref_grid, s, r):
     reference grid onto the padded fine grid. Endpoint-aligned
     (fine index f sits at ref pixel f/s exactly — jax.image.resize's
     half-pixel-center convention would shift the lattice), as three
-    MXU contractions; the pad ring holds the outside sentinel."""
+    matrix contractions; the pad ring holds the outside sentinel."""
     from .resample import _interp_matrix, _separable_apply
 
     vol = jnp.asarray(eval_on_ref_grid, jnp.float32)

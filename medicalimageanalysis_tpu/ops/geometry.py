@@ -4,7 +4,7 @@ The reference duplicates 4x4 pixel<->position transform construction in >=6
 places (reference structure/image.py:62-108, rigid.py:109-162,
 deformable.py:175-214, dose.py:84-125, roi.py:162-207,
 utils/convert/contour.py:58-74). This module is the single canonical
-implementation for the TPU build; host decisions use numpy, device-side moves
+implementation; host decisions use numpy, device-side moves
 use jax.numpy.
 
 Conventions (identical to the reference):

@@ -1,11 +1,11 @@
-"""Radiomics feature extraction — IBSI/pyradiomics-family panels,
-TPU-native.
+"""Radiomics feature extraction — IBSI/pyradiomics-family panels on
+device.
 
 BEYOND-PARITY: the reference stack has no radiomics at all; users pair
 it with pyradiomics (C/numpy, one ROI at a time on host). Here the
 expensive part — building the texture matrices over the ROI voxels —
-runs on device as one-hot MXU contractions and static-shift stencils
-(the TPU-native form of scatter-add counting), so the same kernels
+runs on device as one-hot matmul contractions and static-shift
+stencils (in place of scatter-add counting), so the same kernels
 batch over a cohort; the tiny (Ng x Ng)-scale matrices then come back
 to host where the ~80 feature formulas are evaluated in float64.
 
@@ -93,8 +93,8 @@ def _shift(a, d, fill):
 def _cooc(ia, ib, w, Na, Nb):
     """sum_v w[v] * onehot(ia[v]) (x) onehot(ib[v]) -> (Na, Nb) f32.
 
-    The TPU-native scatter-add: chunked one-hot matmuls ride the MXU
-    instead of lowering to serialized scatters. Indices outside
+    A scatter-add as chunked one-hot matmuls instead of serialized
+    scatters. Indices outside
     [0, Na)/[0, Nb) contribute nothing (jax.nn.one_hot zeroes them).
     """
     ia = ia.ravel()

@@ -1,6 +1,6 @@
 """Device polygon rasterization: contour -> 3D binary mask.
 
-TPU-native replacement for the reference's per-slice cv2.fillPoly + XOR
+Device replacement for the reference's per-slice cv2.fillPoly + XOR
 loop (reference utils/convert/contour.py:76-116). Semantics preserved:
 
 - vertices truncated to int32 (the reference's ``astype(np.int32)``)
@@ -12,8 +12,8 @@ Design (one fused XLA program, no per-slice host loop):
 - per-row quantities per edge: the even-odd crossing position (interior)
   and the covered pixel run (8-connected boundary);
 - accumulation over edges is a chunked broadcast-compare + reduce
-  against the pixel axis (TPU scatters serialize; compare+reduce is
-  fused VPU work: ~E/8 streaming passes over the (K, H, W) counters);
+  against the pixel axis (compare+reduce fuses; scatters would
+  serialize: ~E/8 streaming passes over the (K, H, W) counters);
 - per-slice XOR = parity of the per-polygon bitmap sum.
 
 All shapes are static; polygons are padded to (K, E) buckets so jit
@@ -143,7 +143,7 @@ def _polygon_bitmaps(verts, edge_valid, H, W):
     hi_c = jnp.where(ok, hi_c, 0)
 
     # ---- accumulate over edges: fused compare+reduce (no scatter) ----
-    # TPU scatters serialize; a per-edge fold (round-1 design) kept the
+    # scatters serialize; a per-edge fold (round-1 design) kept the
     # whole (K, H, W) carry in HBM and re-read/re-wrote it E times. Here
     # edges reduce in CHUNKS: inside a chunk the (K, C, H, W) compare is
     # a virtual fusion operand of the sum/any reduce — XLA keeps the
@@ -298,7 +298,7 @@ def rasterize_polygons(polygons, slice_indices, n_slices, H, W):
 
     Rides the bbox-tile path: each polygon rasterizes only its own
     power-of-two tile and K dynamic-slice adds compose the canvas —
-    ~an order of magnitude less VPU work than the old full-frame
+    ~an order of magnitude less work than the old full-frame
     kernel at liver scale (bbox ~170 px on a 512 grid)."""
     K = len(polygons)
     if K == 0:

@@ -1,10 +1,10 @@
 """B-spline free-form deformable registration (device).
 
-TPU-native replacement for the SimpleITK B-spline registration path
+Device replacement for the SimpleITK B-spline registration path
 (reference utils/deformable/simpleitk.py:96-129): a cubic B-spline
 control grid (default 50 mm spacing like the reference) is densified to
-a displacement field through three separable basis-matrix contractions
-(MXU), the masked-MSE loss differentiates through the trilinear warp,
+a displacement field through three separable basis-matrix contractions,
+the masked-MSE loss differentiates through the trilinear warp,
 and Adam iterations run as one lax.scan inside one jit.
 """
 
@@ -53,43 +53,21 @@ def bspline_basis_matrix(n_vox, n_ctrl, ctrl_spacing_vox):
 
 
 @partial(jax.jit,
-         static_argnames=("steps", "use_pallas", "window", "with_mmask",
-                          "metric", "bins", "with_base"))
+         static_argnames=("steps", "with_mmask", "metric", "bins",
+                          "with_base"))
 def _bspline_fit(fixed, moving, fixed_mask, moving_mask, Bz, By, Bx,
-                 sp, lr, steps, use_pallas=True, window=None,
-                 with_mmask=False, metric="mse", bins=32,
+                 sp, lr, steps, with_mmask=False, metric="mse", bins=32,
                  with_base=False, base_mm=None):
     # the moving-image mask (ITK semantics: a sample only contributes
     # where the warped moving mask is on) warps through the SAME kernel
     # call as the image, batched
     stack = jnp.stack([moving, moving_mask]) if with_mmask \
         else moving[None]
-    if use_pallas and jax.default_backend() == "tpu":
-        # Pallas displacement sampler: exact trilinear with the
-        # analytic VJP fused into the forward kernel — the densified
-        # field feeds the kernel directly as tiled blocks, so neither
-        # pass materializes coordinate volumes (docs/PERF.md round-3
-        # profile). Gradients flow disp -> control points through the
-        # separable basis einsums. Callers verify the final field
-        # against the slab windows and redo with a sized window / the
-        # XLA sampler when it overflowed (bspline_registration).
-        from ..pallas_warp import make_disp_sampler
-        sample_disp = make_disp_sampler(stack, 0.0, window=window,
-                                        with_overflow=True)
-    else:
-        # off-TPU the XLA gather is fine (the 14 M pts/s pathology is
-        # TPU-specific) and beats interpret-mode kernel emulation
-        from ..pallas_warp import _base_grid
-        from ..resample import make_trilinear_sampler
-        _samplers = [make_trilinear_sampler(stack[b], 0.0)
-                     for b in range(stack.shape[0])]
-        zz, yy, xx = _base_grid(fixed.shape)
-
-        def sample_disp(dv):
-            coords = jnp.stack([xx + dv[0], yy + dv[1], zz + dv[2]],
-                               axis=-1)
-            return (jnp.stack([s(coords) for s in _samplers]),
-                    jnp.float32(0.0))
+    # exact trilinear displacement sampler with the analytic VJP:
+    # gradients flow disp -> control points through the separable
+    # basis einsums
+    from ..warp import make_disp_sampler
+    sample_disp = make_disp_sampler(stack, 0.0)
 
     spc = sp[:, None, None, None]
 
@@ -112,7 +90,7 @@ def _bspline_fit(fixed, moving, fixed_mask, moving_mask, Bz, By, Bx,
 
     def loss_fn(ctrl):
         d = total_disp(ctrl)
-        w_all, ovf = sample_disp(d / spc)
+        w_all = sample_disp(d / spc)
         warped = w_all[0]
         w = fixed_mask * w_all[1] if with_mmask else fixed_mask
         if metric == "mse":
@@ -127,23 +105,22 @@ def _bspline_fit(fixed, moving, fixed_mask, moving_mask, Bz, By, Bx,
         reg = jnp.mean(jnp.square(jnp.diff(ctrl, axis=1))) \
             + jnp.mean(jnp.square(jnp.diff(ctrl, axis=2))) \
             + jnp.mean(jnp.square(jnp.diff(ctrl, axis=3)))
-        return sim + 1e-3 * reg, ovf
+        return sim + 1e-3 * reg
 
     opt = optax.adam(lr)
     ctrl0 = jnp.zeros((3, Bz.shape[1], By.shape[1], Bx.shape[1]),
                       jnp.float32)
 
     def step(carry, _):
-        ctrl, opt_state, tot_ovf = carry
-        (loss, ovf), g = jax.value_and_grad(loss_fn, has_aux=True)(ctrl)
+        ctrl, opt_state = carry
+        loss, g = jax.value_and_grad(loss_fn)(ctrl)
         updates, opt_state = opt.update(g, opt_state)
         ctrl = optax.apply_updates(ctrl, updates)
-        return (ctrl, opt_state, tot_ovf + ovf), loss
+        return (ctrl, opt_state), loss
 
-    (ctrl, _, total_ovf), losses = jax.lax.scan(
-        step, (ctrl0, opt.init(ctrl0), jnp.float32(0.0)),
-        None, length=steps)
-    return jnp.moveaxis(total_disp(ctrl), 0, -1), losses, total_ovf
+    (ctrl, _), losses = jax.lax.scan(step, (ctrl0, opt.init(ctrl0)),
+                                     None, length=steps)
+    return jnp.moveaxis(total_disp(ctrl), 0, -1), losses
 
 
 def bspline_registration(fixed, moving, spacing_xyz=(1.0, 1.0, 1.0),
@@ -157,13 +134,6 @@ def bspline_registration(fixed, moving, spacing_xyz=(1.0, 1.0, 1.0),
     The returned field is the *sampling* field: moving(x + d(x)) ~
     fixed(x). `moving_mask` (ITK semantics) warps with the image and
     gates the loss where the warped mask is on.
-
-    Exactness on TPU: after the fit the final field's per-tile spread
-    is checked against the warp kernel's slab windows; if it exceeded
-    them (organ-scale motion with a tight control grid) the fit is
-    REDONE with a demand-sized window, or on the unbounded XLA sampler
-    when no VMEM-fitting window suffices — overflowed samples would
-    otherwise return background with zeroed gradients (review finding).
     """
     fixed = np.asarray(fixed, dtype=np.float32)
     moving = np.asarray(moving, dtype=np.float32)
@@ -195,52 +165,7 @@ def bspline_registration(fixed, moving, spacing_xyz=(1.0, 1.0, 1.0),
     args = (jnp.asarray(fixed), jnp.asarray(moving), jnp.asarray(fmask),
             jnp.asarray(mmask), Bz, By, Bx, jnp.asarray(sp),
             jnp.float32(lr), int(iterations))
-    dvf, losses, ovf1 = _bspline_fit(*args, with_mmask=with_mmask)
-
-    if jax.default_backend() == "tpu":
-        # post-fit exactness check: did the field outgrow the kernel's
-        # slab windows? (overflowed samples return background with
-        # zero gradients — review finding). The overflow counter is
-        # accumulated across EVERY iterate of the fit (ADVICE r2: a
-        # transiently overflowing fit whose final field fits the caps
-        # would otherwise be silently accepted). The redo is
-        # RE-verified — by its own accumulated counter plus the final
-        # field's demand — and any second failure (or an x-tap
-        # overflow, which the z/y window cannot express) goes straight
-        # to the unbounded XLA sampler, so no windowed fit result is
-        # ever used unverified.
-        from ..pallas_warp import (SLAB_VMEM_BUDGET, fits_x_window,
-                                   required_window, window_slab_bytes)
-        batch = 2 if with_mmask else 1
-
-        def demand(field):
-            disp_vox = np.moveaxis(np.asarray(field), -1, 0) \
-                / sp[:, None, None, None]
-            return (required_window(disp_vox * 1.25),
-                    fits_x_window(disp_vox[0] * 1.25, fixed.shape[2]))
-
-        win, x_ok = demand(dvf)
-        overflowed = float(ovf1) > 0
-        if not x_ok:
-            dvf, losses, _ = _bspline_fit(*args, use_pallas=False,
-                                          with_mmask=with_mmask)
-        elif win[0] > 16 or win[1] > 16 or overflowed:
-            # intermediate-only overflow under-reports demand via the
-            # final field: widen past both the demand and the default
-            win_r = ((max(win[0], 24), max(win[1], 24)) if overflowed
-                     else win)
-            if window_slab_bytes(fixed.shape, win_r,
-                                 batch) <= SLAB_VMEM_BUDGET:
-                dvf, losses, ovf2 = _bspline_fit(*args, window=win_r,
-                                                 with_mmask=with_mmask)
-                win2, x_ok2 = demand(dvf)
-                redo = (not x_ok2 or win2[0] > win_r[0]
-                        or win2[1] > win_r[1] or float(ovf2) > 0)
-            else:
-                redo = True
-            if redo:
-                dvf, losses, _ = _bspline_fit(*args, use_pallas=False,
-                                              with_mmask=with_mmask)
+    dvf, losses = _bspline_fit(*args, with_mmask=with_mmask)
     return np.asarray(dvf), np.asarray(losses)
 
 
@@ -411,8 +336,8 @@ def elastix_registration(fixed, moving, spacing_xyz=(1.0, 1.0, 1.0),
     utils/deformable/simpleitk.py:131-176): ``resolutions`` levels
     coarse-to-fine with both the image and the control grid halving in
     resolution per level (grid spacing = final_grid_spacing * 2^l),
-    Mattes mutual information (default; Parzen joint histogram on the
-    MXU, shared with the rigid MI metric) or mean-squares /
+    Mattes mutual information (default; Parzen joint histogram as a
+    matrix product, shared with the rigid MI metric) or mean-squares /
     normalized-correlation, and ``iterations`` optimizer steps per
     level. Each level warm-starts additively from the previous level's
     field: loss(ctrl) = metric(fixed_l, moving(x + base_mm + B ctrl)),
@@ -518,36 +443,8 @@ def elastix_registration(fixed, moving, spacing_xyz=(1.0, 1.0, 1.0),
         fit_kw = dict(with_mmask=with_mmask, metric=metric,
                       bins=int(bins), with_base=with_base,
                       base_mm=base_l)
-        dvf, losses, ovf = _bspline_fit(*fit_args, **fit_kw)
+        dvf, losses = _bspline_fit(*fit_args, **fit_kw)
 
-        if jax.default_backend() == "tpu":
-            # per-level exactness (same contract as
-            # bspline_registration): the accumulated overflow counter
-            # plus the final field's window demand decide a redo on a
-            # widened window or the unbounded XLA sampler — an
-            # overflowed level would warm-start the next level from a
-            # locally-backgrounded fit
-            from ..pallas_warp import (SLAB_VMEM_BUDGET, fits_x_window,
-                                       required_window,
-                                       window_slab_bytes)
-            disp_vox = np.moveaxis(np.asarray(dvf), -1, 0) \
-                / sp_l[:, None, None, None]
-            win = required_window(disp_vox * 1.25)
-            x_ok = fits_x_window(disp_vox[0] * 1.25, f_l.shape[2])
-            if not x_ok or win[0] > 16 or win[1] > 16 \
-                    or float(ovf) > 0:
-                win_r = (max(win[0], 24), max(win[1], 24))
-                batch = 2 if with_mmask else 1
-                if x_ok and window_slab_bytes(
-                        f_l.shape, win_r, batch) <= SLAB_VMEM_BUDGET:
-                    dvf, losses, ovf2 = _bspline_fit(
-                        *fit_args, window=win_r, **fit_kw)
-                    if float(ovf2) > 0:
-                        dvf, losses, _ = _bspline_fit(
-                            *fit_args, use_pallas=False, **fit_kw)
-                else:
-                    dvf, losses, _ = _bspline_fit(
-                        *fit_args, use_pallas=False, **fit_kw)
         base_mm = dvf                                   # (Zl,Yl,Xl,3) mm
         losses_all.append(np.asarray(losses))
 

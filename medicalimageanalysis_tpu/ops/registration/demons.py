@@ -1,12 +1,12 @@
 """Demons deformable registration (device stencil iterations).
 
-TPU-native replacement for ITK's DemonsRegistrationFilter /
+Device replacement for ITK's DemonsRegistrationFilter /
 FastSymmetricForcesDemonsRegistrationFilter /
 DiffeomorphicDemonsRegistrationFilter
 (reference utils/deformable/simpleitk.py:178-256). Demons is pure
 stencil + gather math — ideal XLA material: the whole iteration loop is
 one fori_loop inside one jit, with per-iteration separable Gaussian
-field smoothing on the MXU.
+field smoothing as matrix contractions.
 
 Update rule (Thirion, as in ITK): for difference D = f - m(x+u) and
 gradient g (fixed grad, or symmetric mean for the fast variant):
@@ -16,7 +16,7 @@ Diffeomorphic composes exp(du) into the field instead of adding.
 forces='lncc' swaps the Thirion update for ANTs-CC local normalized
 cross-correlation gradient forces (Avants et al., MedIA 2008) — the
 contrast-invariant metric for CT<->MR: all windowed moments are
-separable box sums on the MXU, the update rides the warped moving
+separable box sums, the update rides the warped moving
 gradient (the symmetric mean cancels under opposite contrast
 polarity), and fluid-like smoothing precedes ANTs' gradient-step
 normalization so noise-window spikes cannot starve the coherent
@@ -33,6 +33,7 @@ import jax
 import jax.numpy as jnp
 
 from ..filters import _gauss_kernel_matrix
+from ..warp import warp_disp
 from .dvf import _compose_planar
 
 __all__ = ["demons_registration"]
@@ -46,12 +47,15 @@ def _spatial_gradient_planar(vol, sp):
 
 def _smooth_field(u, mz, my, mx):
     """Separable Gaussian over a planar (3, Z, Y, X) field: one batched
-    einsum per axis (MXU contractions)."""
-    out = jnp.einsum("ij,cjyx->ciyx", mz, u,
+    einsum per axis. HIGHEST keeps the field at f32 (the z-sharded twin
+    in parallel/halo.py sums its z taps in f32; TF32 here would split
+    the two trajectories)."""
+    hi = jax.lax.Precision.HIGHEST
+    out = jnp.einsum("ij,cjyx->ciyx", mz, u, precision=hi,
                      preferred_element_type=jnp.float32)
-    out = jnp.einsum("kj,czjx->czkx", my, out,
+    out = jnp.einsum("kj,czjx->czkx", my, out, precision=hi,
                      preferred_element_type=jnp.float32)
-    return jnp.einsum("lj,czyj->czyl", mx, out,
+    return jnp.einsum("lj,czyj->czyl", mx, out, precision=hi,
                       preferred_element_type=jnp.float32)
 
 
@@ -79,12 +83,10 @@ def _lncc_force(i_a, var_a, i_b, var_b, cross, g_b, v_eps):
 
 
 def _box_sum(vol, bz, by, bx):
-    """Separable windowed sum over a (Z, Y, X) volume (MXU einsums —
-    the TPU form of a box filter). Precision HIGHEST is load-bearing:
-    the LNCC variances come from moment cancellation E[x^2] - E[x]^2,
-    and the TPU's default bf16 matmul inputs destroy them (measured:
-    inverted-contrast recovery degrades 0.33 -> 1.38 mm on hardware
-    while CPU tests stay green)."""
+    """Separable windowed sum over a (Z, Y, X) volume (a box filter as
+    three matrix contractions). Precision HIGHEST is load-bearing: the
+    LNCC variances come from moment cancellation E[x^2] - E[x]^2, which
+    reduced-precision matmul inputs (bf16, TF32) destroy."""
     hi = jax.lax.Precision.HIGHEST
     out = jnp.einsum("ij,jyx->iyx", bz, vol, precision=hi,
                      preferred_element_type=jnp.float32)
@@ -100,15 +102,12 @@ def _box_sum(vol, bz, by, bx):
 def _demons_core(fixed, moving, sp, std_vox, step, intensity_threshold,
                  iterations, method, smooth, elastic_lambda=0.2,
                  u0=None, forces="ssd", lncc_radius=3):
-    """Returns (dvf_mm (Z,Y,X,3), total_overflow).
+    """Returns dvf_mm (Z,Y,X,3).
 
     The whole iteration loop holds the field PLANAR (3, Z, Y, X) and
-    warps through the fused-coordinate Pallas mode — no coordinate
-    volumes, no per-iteration channel transposes (round-3 profile:
-    coordinate materialization alone cost more than the warp kernel).
-    sp (and the update math) stays in (x, y, z) component order along
-    the leading axis."""
-    from ..pallas_warp import warp_disp_jit
+    warps through the displacement warp — no per-iteration channel
+    transposes. sp (and the update math) stays in (x, y, z) component
+    order along the leading axis."""
 
     grad_f = _spatial_gradient_planar(fixed, sp)
     K = jnp.mean(sp) ** 2
@@ -123,8 +122,8 @@ def _demons_core(fixed, moving, sp, std_vox, step, intensity_threshold,
 
     # the symmetric-forces variants (and LNCC, whose force rides the
     # moving gradient) warp the moving image AND its three gradient
-    # components every iteration: batch all four through ONE Pallas
-    # tile-slab warp sharing coordinates (docs/PERF.md)
+    # components every iteration: batch all four through ONE warp
+    # sharing coordinates
     symmetric = method in ("fast", "diffeomorphic", "biomechanical")
     if symmetric or forces == "lncc":
         grad_m = _spatial_gradient_planar(moving, sp)
@@ -150,11 +149,8 @@ def _demons_core(fixed, moving, sp, std_vox, step, intensity_threshold,
         mu_f = f_cent - i_f
         v_eps = 1e-5 * jnp.maximum(jnp.mean(var_f), 1e-12)
 
-    def body(_, carry):
-        u_vox, ovf = carry                     # u_vox (3, Z, Y, X)
-        w, dovf = warp_disp_jit(warp_stack, u_vox, 0.0,
-                                with_overflow=True)
-        ovf = ovf + dovf
+    def body(_, u_vox):                        # u_vox (3, Z, Y, X)
+        w = warp_disp(warp_stack, u_vox, 0.0)
         warped = w[0]
         if forces == "lncc":
             # the CC force differentiates wrt the WARPED MOVING image:
@@ -171,7 +167,7 @@ def _demons_core(fixed, moving, sp, std_vox, step, intensity_threshold,
             # ANTs-CC gradient forces: maximize the local correlation
             # CC = cross^2 / (var_f var_m) — the cross-modality force
             # where SSD demons stalls. All windowed moments are
-            # separable box sums on the MXU.
+            # separable box sums.
             w_cent = warped - m_shift
             i_m, var_m = _lncc_moments(w_cent, lz, ly, lx, cnt)
             mu_m = w_cent - i_m
@@ -210,10 +206,8 @@ def _demons_core(fixed, moving, sp, std_vox, step, intensity_threshold,
             # exp(upd) via scaling and squaring (3 squarings)
             v = upd_vox / 8.0
             for _s in range(3):
-                v, dovf = _compose_planar(v, v)
-                ovf = ovf + dovf
-            u_new, dovf = _compose_planar(u_vox, v)
-            ovf = ovf + dovf
+                v = _compose_planar(v, v)
+            u_new = _compose_planar(u_vox, v)
         else:
             u_new = u_vox + upd_vox
         if smooth:
@@ -234,13 +228,12 @@ def _demons_core(fixed, moving, sp, std_vox, step, intensity_threshold,
             u_new = u_new + elastic_lambda * jnp.stack(
                 [jnp.gradient(div, axis=2), jnp.gradient(div, axis=1),
                  jnp.gradient(div, axis=0)])
-        return u_new, ovf
+        return u_new
 
     if u0 is None:
         u0 = jnp.zeros((3,) + fixed.shape, jnp.float32)
-    u, ovf = jax.lax.fori_loop(0, iterations, body,
-                               (u0, jnp.float32(0.0)))
-    return jnp.moveaxis(u, 0, -1) * sp, ovf    # voxels -> mm
+    u = jax.lax.fori_loop(0, iterations, body, u0)
+    return jnp.moveaxis(u, 0, -1) * sp         # voxels -> mm
 
 
 @partial(jax.jit,
@@ -255,14 +248,9 @@ def _syn_core(fixed, moving, sp, std_vox, step, intensity_threshold,
     BOTH images to the middle, computes opposing forces there, and
     composes each half with the exponential of its own (smoothed,
     step-normalized) update. Returns the half-fields
-    (u1_mm, u2_mm (Z,Y,X,3), overflow); the caller assembles the full
+    (u1_mm, u2_mm (Z,Y,X,3)); the caller assembles the full
     inverse-consistent map u2 o u1^{-1} through the canonical
-    invert_dvf (which verifies the kernel's overflow counter and
-    redoes on the exact XLA twin — an inline inversion here could
-    silently corrupt the field through overflowed taps, and would
-    waste its dispatches at coarse pyramid levels whose composed
-    output is discarded)."""
-    from ..pallas_warp import warp_disp_jit
+    invert_dvf, once, at full resolution."""
 
     grad_f = _spatial_gradient_planar(fixed, sp)
     grad_m = _spatial_gradient_planar(moving, sp)
@@ -288,13 +276,12 @@ def _syn_core(fixed, moving, sp, std_vox, step, intensity_threshold,
         f_shift = jnp.mean(fixed)
         m_shift = jnp.mean(moving)
 
-    def _exp(upd_vox, ovf):
+    def _exp(upd_vox):
         # exp via scaling and squaring (3 squarings)
         v = upd_vox / 8.0
         for _s in range(3):
-            v, dovf = _compose_planar(v, v)
-            ovf = ovf + dovf
-        return v, ovf
+            v = _compose_planar(v, v)
+        return v
 
     def _normalize(upd_mm, ssd_cap_only):
         max_norm = jnp.sqrt(jnp.max(jnp.sum(upd_mm * upd_mm, axis=0)))
@@ -305,10 +292,9 @@ def _syn_core(fixed, moving, sp, std_vox, step, intensity_threshold,
         return upd_mm * scale
 
     def body(_, carry):
-        u1, u2, ovf = carry
-        wf, d1 = warp_disp_jit(stack_f, u1, 0.0, with_overflow=True)
-        wm, d2 = warp_disp_jit(stack_m, u2, 0.0, with_overflow=True)
-        ovf = ovf + d1 + d2
+        u1, u2 = carry
+        wf = warp_disp(stack_f, u1, 0.0)
+        wm = warp_disp(stack_m, u2, 0.0)
         fw, gfw = wf[0], wf[1:4]
         mw, gmw = wm[0], wm[1:4]
         if forces == "lncc":
@@ -338,23 +324,18 @@ def _syn_core(fixed, moving, sp, std_vox, step, intensity_threshold,
                 (-diff / jnp.maximum(den_f, 1e-9))[None] * gfw, 0.0)
             f_m = _normalize(f_m, True)
             f_f = _normalize(f_f, True)
-        e_f, ovf = _exp(f_f / spc, ovf)
-        e_m, ovf = _exp(f_m / spc, ovf)
-        u1n, d1 = _compose_planar(u1, e_f)
-        u2n, d2 = _compose_planar(u2, e_m)
-        ovf = ovf + d1 + d2
+        u1n = _compose_planar(u1, _exp(f_f / spc))
+        u2n = _compose_planar(u2, _exp(f_m / spc))
         if smooth:
             u1n = _smooth_field(u1n, mz, my, mx)
             u2n = _smooth_field(u2n, mz, my, mx)
-        return u1n, u2n, ovf
+        return u1n, u2n
 
     zero = jnp.zeros((3,) + fixed.shape, jnp.float32)
     u1 = zero if u1_0 is None else u1_0
     u2 = zero if u2_0 is None else u2_0
-    u1, u2, ovf = jax.lax.fori_loop(0, iterations, body,
-                                    (u1, u2, jnp.float32(0.0)))
-    return (jnp.moveaxis(u1, 0, -1) * sp,
-            jnp.moveaxis(u2, 0, -1) * sp, ovf)
+    u1, u2 = jax.lax.fori_loop(0, iterations, body, (u1, u2))
+    return jnp.moveaxis(u1, 0, -1) * sp, jnp.moveaxis(u2, 0, -1) * sp
 
 
 def _downsample_volume(vol, factor):
@@ -431,7 +412,6 @@ def demons_registration(fixed, moving, spacing_xyz=(1.0, 1.0, 1.0),
         pyramid = (1,)
     out_mm = None
     halves_mm = None                     # (u1_mm, u2_mm) for syn
-    ovf = jnp.float32(0.0)
     for factor in pyramid:
         if int(factor) > 1:
             f_l = _downsample_volume(fixed, int(factor))
@@ -451,28 +431,25 @@ def demons_registration(fixed, moving, spacing_xyz=(1.0, 1.0, 1.0),
                        for h in halves_mm]
                 u1_0, u2_0 = [jnp.moveaxis(u / sp_l, -1, 0)
                               for u in ups]
-            u1_mm, u2_mm, dovf = _syn_core(
+            halves_mm = _syn_core(
                 f_l, m_l, sp_l, float(std), jnp.float32(step),
                 jnp.float32(intensity_threshold), int(iterations),
                 bool(smooth), forces, int(lncc_radius),
                 u1_0=u1_0, u2_0=u2_0)
-            halves_mm = (u1_mm, u2_mm)
         else:
             u0 = None
             if out_mm is not None:
                 up = _upsample_field(jnp.asarray(out_mm), f_l.shape)
                 u0 = jnp.moveaxis(up / sp_l, -1, 0)      # mm -> voxels
-            out_mm, dovf = _demons_core(
+            out_mm = _demons_core(
                 f_l, m_l, sp_l, float(std), jnp.float32(step),
                 jnp.float32(intensity_threshold), int(iterations),
                 method, bool(smooth), jnp.float32(elastic_lambda),
                 u0=u0, forces=forces, lncc_radius=int(lncc_radius))
-        ovf = ovf + dovf
     if syn:
         # full map: x -> phi2(phi1^{-1}(x)); with w = u1^{-1},
-        # d = w + u2(x + w) = compose(u2, w). invert_dvf / compose_dvf
-        # carry their own overflow-verified exact-XLA fallbacks, and
-        # the inversion runs only once at full resolution
+        # d = w + u2(x + w) = compose(u2, w); the inversion runs only
+        # once, at full resolution
         from .dvf import compose_dvf, invert_dvf
         u1_np, u2_np = [np.asarray(h) for h in halves_mm]
         sp_np = np.asarray(spacing_xyz, np.float32)
@@ -480,15 +457,4 @@ def demons_registration(fixed, moving, spacing_xyz=(1.0, 1.0, 1.0),
         out = compose_dvf(u2_np, w, sp_np)
     else:
         out = out_mm
-    if float(ovf) > 0:
-        # the evolving field exceeded the warp kernel's slab windows in
-        # some tiles (possible for very rough/large deformations with
-        # smoothing off) — those samples took the background value.
-        # Surface it rather than silently degrading.
-        import warnings
-        warnings.warn(
-            f"demons: {float(ovf):.0f} warp taps exceeded the kernel "
-            "slab caps (treated as background). Increase smoothing or "
-            "reduce step; the result is a valid but locally damped "
-            "demons field.", RuntimeWarning)
     return np.asarray(out)

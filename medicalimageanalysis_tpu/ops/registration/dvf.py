@@ -1,6 +1,6 @@
 """Displacement-vector-field primitives.
 
-TPU-native replacements for the SimpleITK DVF machinery the reference
+Device replacements for the SimpleITK DVF machinery the reference
 uses (reference structure/deformable.py:732-774):
 
 - :func:`warp_volume` — DisplacementFieldTransform + Resample:
@@ -14,17 +14,8 @@ uses (reference structure/deformable.py:732-774):
 Public fields are (Z, Y, X, 3) arrays with mm components in (x, y, z)
 order, matching the DICOM/ITK convention the reference stores
 (reference read/dicom.py:1766-1786). INTERNALLY the iterations keep the
-field planar (3, Z, Y, X) and feed it straight to the fused-coordinate
-Pallas warp (``warp_disp_jit``): no per-iteration channel transposes
-and no materialized coordinate volumes (docs/PERF.md round-3 profile).
-
-Exactness: the Pallas kernel backgrounds samples whose taps exceed its
-static slab windows. Eager surfaces here size the window from the
-field's own per-tile spread (:func:`required_window`) and fall back to
-the exact XLA gather when the demanded slab would not fit VMEM — or,
-for the fixed-point inversion whose iterates' spread cannot be bounded
-a priori, verify the kernel's overflow counter post-hoc and redo on the
-XLA twin if any element overflowed. Results are exact either way.
+field planar (3, Z, Y, X) and feed it straight to the displacement warp
+(``ops.warp.warp_disp``): no per-iteration channel transposes.
 """
 
 from __future__ import annotations
@@ -36,140 +27,55 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
+from ..warp import warp_disp
+
 __all__ = ["warp_volume", "invert_dvf", "compose_dvf",
            "gradient_magnitude", "sample_dvf_at_points"]
 
 
-
-def _base_coords(shape):
-    Z, Y, X = shape
-    zz = jnp.arange(Z, dtype=jnp.float32)
-    yy = jnp.arange(Y, dtype=jnp.float32)
-    xx = jnp.arange(X, dtype=jnp.float32)
-    Zg, Yg, Xg = jnp.meshgrid(zz, yy, xx, indexing="ij")
-    return Xg, Yg, Zg
-
-
-def _auto_window(disp_planar_host, vol_shape, batch):
-    """(window, fits): demanded (DZ, DY) caps for a concrete field, and
-    whether the implied slab scratch fits the VMEM budget."""
-    from ..pallas_warp import (SLAB_VMEM_BUDGET, required_window,
-                               window_slab_bytes)
-    win = required_window(disp_planar_host)
-    return win, window_slab_bytes(vol_shape, win,
-                                  batch) <= SLAB_VMEM_BUDGET
-
-
-@partial(jax.jit, static_argnames=())
+@jax.jit
 def _warp(vol, dvf_vox, background):
-    """vol (Z,Y,X); dvf_vox (Z,Y,X,3) displacement in voxels (x,y,z).
-
-    Jit-safe dispatch: fused-coordinate Pallas warp on TPU (the XLA
-    computed-index gather is ~14 M pts/s on v5e — docs/PERF.md); XLA
-    twin elsewhere."""
-    from ..pallas_warp import warp_disp_jit
-    return warp_disp_jit(vol, jnp.moveaxis(dvf_vox, -1, 0), background)
+    """vol (Z,Y,X); dvf_vox (Z,Y,X,3) displacement in voxels (x,y,z)."""
+    return warp_disp(vol, jnp.moveaxis(dvf_vox, -1, 0), background)
 
 
 def warp_volume(volume, dvf_mm, spacing_xyz, background=0.0):
-    """Warp: out(x) = volume(x + d(x)); d in mm on the same grid.
-
-    Eager surface: sizes the kernel window from the field's own
-    per-tile spread, so results are exact for arbitrarily rough fields
-    (XLA twin when the demanded slab exceeds VMEM). Under jit it stays
-    on the jit-safe dispatch."""
+    """Warp: out(x) = volume(x + d(x)); d in mm on the same grid."""
     vol = jnp.asarray(volume, dtype=jnp.float32)
     dvf = jnp.asarray(dvf_mm, dtype=jnp.float32)
     sp = jnp.asarray(spacing_xyz, dtype=jnp.float32)
-    if isinstance(vol, jax.core.Tracer) or isinstance(dvf, jax.core.Tracer):
-        return _warp(vol, dvf / sp, jnp.float32(background))
-    from ..pallas_warp import field_warp_disp
-    return field_warp_disp(vol, jnp.moveaxis(dvf / sp, -1, 0),
-                           background=background)
+    return _warp(vol, dvf / sp, jnp.float32(background))
 
 
-@partial(jax.jit, static_argnames=("iterations", "window", "use_xla"))
-def _invert_planar(field_b, iterations, window=None, use_xla=False):
-    """field_b: (3, Z, Y, X) planar voxel displacements (x, y, z) rows.
-    Returns (v_planar, total_overflow)."""
-    from ..pallas_warp import warp_disp_jit
-
-    def body(_, carry):
-        v, ovf = carry
-        if use_xla:
-            from ..pallas_warp import _base_grid, field_warp_xla
-            zz, yy, xx = _base_grid(field_b.shape[1:])
-            out = field_warp_xla(field_b, zz + v[2], yy + v[1],
-                                 xx + v[0], 0.0)
-            dovf = jnp.float32(0.0)
-        else:
-            out, dovf = warp_disp_jit(field_b, v, 0.0, window=window,
-                                      with_overflow=True)
-        return -out, ovf + dovf
-
-    v0 = -field_b
-    return jax.lax.fori_loop(0, iterations, body,
-                             (v0, jnp.float32(0.0)))
+@partial(jax.jit, static_argnames=("iterations",))
+def _invert_planar(field_b, iterations):
+    """field_b: (3, Z, Y, X) planar voxel displacements (x, y, z) rows."""
+    return jax.lax.fori_loop(
+        0, iterations, lambda _, v: -warp_disp(field_b, v, 0.0), -field_b)
 
 
 def invert_dvf(dvf_mm, spacing_xyz, iterations=20):
-    """Fixed-point DVF inversion: returns v with (id + v) ~ (id + d)^-1.
-
-    Exact: the kernel window is sized from d's own per-tile spread (the
-    iterates are resamples of -d, so their spread tracks d's); the
-    kernel's overflow counter is verified post-hoc and the whole
-    inversion redone on the XLA twin in the (rough-field) case the
-    margin did not hold."""
+    """Fixed-point DVF inversion: returns v with (id + v) ~ (id + d)^-1."""
     dvf = np.asarray(dvf_mm, dtype=np.float32)
     sp = np.asarray(spacing_xyz, dtype=np.float32)
-    field_b = np.moveaxis(dvf / sp, -1, 0).copy()      # (3, Z, Y, X)
-    on_tpu = jax.default_backend() == "tpu"
-    window, fits = (None, False)
-    if on_tpu:
-        # +50% margin: iterates are warps of -d; their per-tile spread
-        # can locally exceed d's where the inverse map compresses
-        win = _auto_window(field_b * 1.5, dvf.shape[:3], batch=3)
-        window, fits = win
-    fb = jnp.asarray(field_b)
-    if on_tpu and fits:
-        out, ovf = _invert_planar(fb, int(iterations), window=window)
-        if float(ovf) == 0.0:
-            return np.moveaxis(np.asarray(out), 0, -1) * sp
-    out, _ = _invert_planar(fb, int(iterations), use_xla=True)
+    field_b = jnp.asarray(np.moveaxis(dvf / sp, -1, 0))    # (3, Z, Y, X)
+    out = _invert_planar(field_b, int(iterations))
     return np.moveaxis(np.asarray(out), 0, -1) * sp
 
 
-@partial(jax.jit, static_argnames=("window",))
-def _compose_planar(u_b, v_b, window=None):
-    """(u after v)(x) = u(x + v(x)) + v(x); planar (3, Z, Y, X) fields.
-    Returns (composed, overflow)."""
-    from ..pallas_warp import warp_disp_jit
-    out, ovf = warp_disp_jit(u_b, v_b, 0.0, window=window,
-                             with_overflow=True)
-    return out + v_b, ovf
+@jax.jit
+def _compose_planar(u_b, v_b):
+    """(u after v)(x) = u(x + v(x)) + v(x); planar (3, Z, Y, X) fields."""
+    return warp_disp(u_b, v_b, 0.0) + v_b
 
 
 def compose_dvf(u_mm, v_mm, spacing_xyz):
-    """Compose two mm fields on the same grid: exact for rough fields
-    (window sized from v, the coordinate field; XLA twin when the slab
-    would not fit VMEM)."""
+    """Compose two mm fields on the same grid: (u after v)."""
     sp = np.asarray(spacing_xyz, dtype=np.float32)
-    u_b = np.moveaxis(np.asarray(u_mm, np.float32) / sp, -1, 0).copy()
-    v_b = np.moveaxis(np.asarray(v_mm, np.float32) / sp, -1, 0).copy()
-    if jax.default_backend() == "tpu":
-        window, fits = _auto_window(v_b, u_b.shape[1:], batch=3)
-        if fits:
-            out, ovf = _compose_planar(jnp.asarray(u_b),
-                                       jnp.asarray(v_b), window=window)
-            if float(ovf) == 0.0:
-                return np.moveaxis(np.asarray(out), 0, -1) * sp
-    # exact XLA twin (coordinate spread exceeded any VMEM-fitting slab)
-    from ..pallas_warp import _base_grid, field_warp_xla
-    zz, yy, xx = _base_grid(u_b.shape[1:])
-    out = field_warp_xla(jnp.asarray(u_b), zz + v_b[2], yy + v_b[1],
-                         xx + v_b[0], 0.0)
-    return (np.moveaxis(np.asarray(out), 0, -1) + np.moveaxis(v_b, 0, -1)) \
-        * sp
+    u_b = np.moveaxis(np.asarray(u_mm, np.float32) / sp, -1, 0)
+    v_b = np.moveaxis(np.asarray(v_mm, np.float32) / sp, -1, 0)
+    out = _compose_planar(jnp.asarray(u_b), jnp.asarray(v_b))
+    return np.moveaxis(np.asarray(out), 0, -1) * sp
 
 
 @jax.jit

@@ -1,9 +1,9 @@
 """Device ICP: rigid point-set registration.
 
-TPU-native replacement for VTK vtkIterativeClosestPointTransform and
+Device replacement for VTK vtkIterativeClosestPointTransform and
 Open3D registration_icp (reference utils/rigid/icp.py:28-176):
 
-- correspondences: brute-force nearest neighbor as chunked MXU matmuls
+- correspondences: brute-force nearest neighbor as chunked matmuls
   (|s|^2 - 2 s.t^T + |t|^2) with a running argmin scan — no KD-tree,
   the systolic array eats the quadratic term;
 - alignment: Kabsch/Umeyama SVD solve;
@@ -39,7 +39,7 @@ def _bucket(n, minimum=256):
 
 
 def _nn_scan(pts, tgt, tgt_valid):
-    """Shared chunked MXU nearest-neighbor scan: for each pts row, the
+    """Shared chunked matmul nearest-neighbor scan: for each pts row, the
     index/distance of its nearest valid tgt row. ONE implementation for
     every ICP loop (round-1 review flagged the triplication)."""
     L = pts.shape[0]

@@ -10,7 +10,7 @@ and hands descent a near-zero starting error). The reference has no
 global initializer at all — its `pre_alignment` is origin matching
 (reference structure/rigid.py:763-785).
 
-TPU-native: the whole estimate is one jitted program (mean-centering,
+On device: the whole estimate is one jitted program (mean-centering,
 separable Hann window, rfftn/irfftn on XLA's device FFT, normalized
 cross-power, argmax + wrapped 3-point parabola refinement). The Hann
 window suppresses the spurious zero-shift peak that the volume

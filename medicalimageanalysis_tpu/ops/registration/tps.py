@@ -18,7 +18,7 @@ displacements. In 3-D the biharmonic Green's function is U(r) = r
 with the classic bordered system (K + lam*I) W + P A = V, P^T W = 0.
 The solve is a tiny host float64 problem (N landmarks ~ tens);
 evaluation over the reference grid is the hot part and runs as
-chunked MXU matmuls: the (chunk, N) distance matrix comes from one
+chunked matmuls: the (chunk, N) distance matrix comes from one
 q @ p^T contraction, so a 256^3 grid against 100 landmarks is pure
 systolic-array work.
 """
@@ -81,7 +81,7 @@ def tps_fit(points, displacements, regularization=0.0):
 
 
 def _kernel_eval(q, P, W, A, p_sq):
-    """(C, 3) centered queries -> (C, 3) displacements: one MXU
+    """(C, 3) centered queries -> (C, 3) displacements: one
     contraction for the distance matrix + one for the combine."""
     q_sq = jnp.sum(q * q, axis=1, keepdims=True)          # (C, 1)
     cross = q @ P.T                                       # (C, N)

@@ -1,6 +1,6 @@
 """Affine / separable volume resampling kernels.
 
-TPU-native replacement for VTK ``vtkImageReslice`` (reference
+Device replacement for VTK ``vtkImageReslice`` (reference
 structure/image.py:160-215, rigid.py:691-740) and SimpleITK
 ``ResampleImageFilter`` (reference structure/dose.py:760-764,
 utils/deformable/simpleitk.py:76-94):
@@ -10,8 +10,8 @@ utils/deformable/simpleitk.py:76-94):
 - :func:`affine_resample` — one 4x4 matrix maps output voxel -> input
   voxel; covers oblique reslice, rigid overlay, grid-to-grid resample.
 - :func:`separable_resample` — axis-aligned rescale expressed as three
-  interpolation-matrix contractions so XLA runs it on the MXU instead of
-  the gather path (isotropic resample of batched volumes).
+  interpolation-matrix contractions, so XLA runs matrix products
+  instead of the gather path (isotropic resample of batched volumes).
 - :func:`reslice_rotation` — vtkImageReslice(AutoCrop, linear,
   background -3001) behavioral equivalent used by the Display classes.
 """
@@ -28,8 +28,7 @@ import jax.numpy as jnp
 from ..config import config
 from . import geometry as geo
 
-__all__ = ["trilinear_gather", "affine_resample", "affine_resample_shear",
-           "separable_resample",
+__all__ = ["trilinear_gather", "affine_resample", "separable_resample",
            "reslice_rotation", "map_coordinates_trilinear"]
 
 
@@ -191,146 +190,16 @@ def _affine_resample_jit(vol, A, out_shape, background):
     return _trilinear(vol, coords, background)
 
 
-def _axis_align_input(A, vol_shape_zyx):
-    """Signed input-axis permutation factor for large rotations.
-
-    The Pallas tile-slab warp needs input z/y to track output z/y with
-    slope ~1 (ops/pallas_warp.fits_warp_caps); a rotation near a
-    multiple of 90 degrees — the common orientation-conversion reslice —
-    violates that even though it is merely a relabeling plus a small
-    residual. Factor A = F o A2 where F is an exact transpose/flip of
-    the INPUT volume (index relabeling, no resampling) and A2 = F^-1 o A
-    is near-identity, so the exact kernel keeps the fast path.
-
-    Returns (array_perm, flip_axes, A2) with
-    ``resample(vol, A) == resample(flip(transpose(vol, array_perm),
-    flip_axes), A2)`` exactly, or None when the dominant entries do not
-    form a permutation (fully oblique maps) or the factor is identity.
-    """
-    A = np.asarray(A, np.float64)
-    R = A[:3, :3]
-    rp = np.argmax(np.abs(R), axis=0)        # old input row per new axis
-    if len(set(int(r) for r in rp)) != 3:
-        return None
-    s = np.sign(R[rp, np.arange(3)])
-    s[s == 0] = 1.0
-    if np.array_equal(rp, [0, 1, 2]) and np.all(s > 0):
-        return None                           # already aligned
-    A2 = np.eye(4)
-    for ip in range(3):
-        n_axis = vol_shape_zyx[2 - int(rp[ip])]
-        A2[ip, :] = s[ip] * A[int(rp[ip]), :]
-        if s[ip] < 0:
-            A2[ip, 3] += n_axis - 1
-    array_perm = tuple(2 - int(rp[2 - a]) for a in range(3))
-    flip_axes = tuple(2 - ip for ip in range(3) if s[ip] < 0)
-    return array_perm, flip_axes, A2
-
-
-@partial(jax.jit, static_argnames=("perm", "flips"))
-def _relayout(vol, perm, flips):
-    out = jnp.transpose(vol, perm)
-    if flips:
-        out = jnp.flip(out, flips)
-    return out
-
-
 def affine_resample(volume, pixel_matrix, out_shape, background=None):
     """Resample through a single 4x4 *pixel-to-pixel* matrix.
 
     `pixel_matrix` maps output pixel (x, y, z, 1) -> input pixel
     (x, y, z). Compose it from grid geometries with
     :func:`compose_pixel_matrix`.
-
-    On TPU with a concrete matrix this dispatches to the Pallas
-    tile-slab warp kernel (20x+ over the XLA gather — docs/PERF.md);
-    its overflow counter falls back to the gather for transforms whose
-    per-tile footprint exceeds the slab caps (large rotations), so the
-    result is always the exact trilinear sample.
     """
     if background is None:
         background = config.background_fill
     vol = jnp.asarray(volume, dtype=jnp.float32)
-    traced = isinstance(vol, jax.core.Tracer) or \
-        isinstance(pixel_matrix, jax.core.Tracer)
-    if (not traced and jax.default_backend() == "tpu"
-            and vol.size >= (1 << 16)):
-        A = np.asarray(pixel_matrix, np.float64)
-        # host-side cap prediction (derived from the kernel's own
-        # config, ops/pallas_warp.fits_warp_caps): skip the kernel
-        # attempt and its wasted run + sync when the per-tile footprint
-        # cannot fit the slab windows — large rotations go straight to
-        # the gather
-        from .pallas_warp import (affine_warp_fused, affine_warp_oblique,
-                                  fits_warp_caps, oblique_plan)
-        osh = tuple(int(s) for s in out_shape)
-
-        def pick_tz(mat, vx):
-            # taller z-tiles halve the slab-DMA amplification the
-            # affine kernel is bound by (measured 2.0x at 256^3,
-            # bit-exact) — take 16 whenever the transform's z-spread
-            # still fits the window at that height
-            for tzc in (16, 8):
-                if fits_warp_caps(mat, vol_x=vx, tz=tzc):
-                    return tzc
-            return None
-
-        fused_args = None
-        al = None
-        tz = pick_tz(A, vol.shape[-1])
-        if tz is not None:
-            fused_args = (A, None, (), tz)
-        else:
-            # large rotation: exact transpose/flip pre-pass (90-ish
-            # degree orientation reslices become near-identity residuals)
-            al = _axis_align_input(A, vol.shape)
-            if al is not None:
-                tz = pick_tz(al[2], vol.shape[al[0][2]])
-                if tz is not None:
-                    perm, flips, A2 = al
-                    fused_args = (A2, perm, flips, tz)
-        if fused_args is not None:
-            A2, perm, flips, tz = fused_args
-            out, ovf = affine_warp_fused(
-                vol, jnp.asarray(A2, jnp.float32),
-                jnp.float32(background), osh, perm=perm, flips=flips,
-                tz=tz)
-            if float(ovf) == 0.0:
-                return out
-            if tz == 16 and fits_warp_caps(
-                    A2, vol_x=vol.shape[-1] if perm is None
-                    else vol.shape[perm[2]], tz=8):
-                # the tz=16 window mispredicted (runtime z-spread
-                # exceeded it): tz=8 has strictly more headroom and
-                # served these maps before the TZ=16 auto-selection —
-                # retry it before abandoning the fused kernel
-                out, ovf = affine_warp_fused(
-                    vol, jnp.asarray(A2, jnp.float32),
-                    jnp.float32(background), osh, perm=perm,
-                    flips=flips, tz=8)
-                if float(ovf) == 0.0:
-                    return out
-            # caps exceeded despite the host prediction: fall through
-            # to the oblique factorization below before the gather
-            # (review finding: going straight to the ~14 M pts/s
-            # gather skipped a path that usually serves these maps)
-        # fully oblique (30-60 degree) map — or a fused attempt that
-        # overflowed at runtime: exact staircase-shear factorization
-        # (ops/pallas_warp.py oblique section)
-        if al is not None:
-            perm, flips, A2 = al
-            shp = tuple(vol.shape[p] for p in perm)
-        else:
-            perm, flips, A2 = None, (), A
-            shp = vol.shape
-        plan = oblique_plan(A2, shp)
-        if plan is not None:
-            out, ovf = affine_warp_oblique(
-                vol, jnp.asarray(A2, jnp.float32),
-                jnp.float32(background), osh, plan,
-                perm=perm, flips=flips)
-            if float(ovf) == 0.0:
-                return out
     A = jnp.asarray(pixel_matrix, dtype=jnp.float32)
     return _affine_resample_jit(vol, A, tuple(int(s) for s in out_shape),
                                 jnp.float32(background))
@@ -359,7 +228,7 @@ def _interp_matrix(n_out, n_in, scale, offset=0.0, dtype=np.float32):
     """(n_out, n_in) row-stochastic linear interpolation matrix.
 
     Row i has weight (1-f) at floor(i*scale+offset) and f at +1 —
-    a dense matmul on the MXU replaces the gather for axis-aligned
+    a dense matmul replaces the gather for axis-aligned
     resampling.
     """
     src = np.arange(n_out, dtype=np.float64) * scale + offset
@@ -373,20 +242,25 @@ def _interp_matrix(n_out, n_in, scale, offset=0.0, dtype=np.float32):
     return m.astype(dtype)
 
 
+# float32 contractions: the GPU's default TF32 keeps ~3 decimal digits,
+# which moves a resampled HU value by whole units
+_HIGHEST = jax.lax.Precision.HIGHEST
+
+
 @jax.jit
 def _separable_apply(vol, mz, my, mx):
-    out = jnp.einsum("ij,jyx->iyx", mz, vol,
+    out = jnp.einsum("ij,jyx->iyx", mz, vol, precision=_HIGHEST,
                      preferred_element_type=jnp.float32)
-    out = jnp.einsum("kj,zjx->zkx", my, out,
+    out = jnp.einsum("kj,zjx->zkx", my, out, precision=_HIGHEST,
                      preferred_element_type=jnp.float32)
-    out = jnp.einsum("lj,zyj->zyl", mx, out,
+    out = jnp.einsum("lj,zyj->zyl", mx, out, precision=_HIGHEST,
                      preferred_element_type=jnp.float32)
     return out
 
 
 def separable_resample(volume, out_shape, in_spacing_zyx=None,
                        out_spacing_zyx=None):
-    """Axis-aligned trilinear resample as three MXU contractions.
+    """Axis-aligned trilinear resample as three matrix contractions.
 
     If spacings are given, sampling positions follow physical spacing
     ratios (origin-aligned); otherwise shape ratios.
@@ -441,11 +315,7 @@ def reslice_transform(volume, vol_matrix, vol_spacing, vol_origin,
                              np.eye(3), out_spacing, lo,
                              phys_transform=T)
     out_shape = (int(out_dims[2]), int(out_dims[1]), int(out_dims[0]))
-    # opt-in fast lane: 3-pass Pallas shear warp (32x on v5e, shear-warp
-    # factorization semantics — see docs/PERF.md); exact gather default
-    warp = affine_resample_shear if config.use_shear_warp \
-        else affine_resample
-    arr = np.asarray(warp(volume, A, out_shape, background))
+    arr = np.asarray(affine_resample(volume, A, out_shape, background))
     return {"array": arr, "origin": lo, "spacing": out_spacing,
             "dimensions": np.asarray(out_dims)}
 
@@ -497,155 +367,3 @@ def reslice_rotation(volume, volume_matrix, spacing, origin, display_matrix,
 
     new_origin = R.T @ lo  # back through the rotation, as the reference does
     return np.asarray(out), new_origin
-
-
-def _permuted_shear_decompose(volume, A):
-    """Factor through the BEST input-axis permutation (identity
-    included): transpose the volume (device relayout) and reorder A's
-    coordinate rows so the permuted map factorizes with the healthiest
-    pivots — barely-passing direct pivots cost ~20x interior accuracy.
-    Returns (permuted_volume, permuted_A, decomposition) or
-    (volume, A, None)."""
-    from itertools import permutations
-
-    best = None
-    for perm in permutations(range(3)):        # new zyx <- old zyx axes
-        # A rows are input (x, y, z) coords = old vol axes (2, 1, 0);
-        # new axis j carries old axis perm[j], so new row for x' is the
-        # old row of axis perm[2], etc.
-        rows = [2 - perm[2], 2 - perm[1], 2 - perm[0]]
-        AP = np.eye(4)
-        AP[:3] = A[rows, :]
-        dec = _shear_decompose(AP)
-        if dec is not None:
-            pivots = np.abs([dec[0][0][0], dec[0][1][0], dec[0][2][0]])
-            score = pivots.min()
-            if best is None or score > best[0]:
-                best = (score, perm, AP, dec)
-    if best is None:
-        return volume, A, None
-    _, perm, AP, dec = best
-    if perm == (0, 1, 2):
-        return volume, AP, dec
-    volP = jnp.transpose(jnp.asarray(volume, jnp.float32), perm)
-    return volP, AP, dec
-
-
-def _shear_decompose(pixel_matrix):
-    """Factor the output->input pixel map into three axis passes.
-
-    Returns per-pass coefficient triples solving (z,y,x ordering)
-        z_in = a3*oz + b3*oy + c3*ox + d3
-        y_in = a2*oy + b2*ox + c2*z_in + d2
-        x_in = a1*ox + b1*y_in + c1*z_in + d1
-    or None when the pivots are too small (rotations beyond ~60 deg
-    need an axis permutation first — fall back to the gather path)."""
-    A = np.asarray(pixel_matrix, np.float64)
-    # A maps (x,y,z,1); reorder rows/cols to (z,y,x)
-    M = np.array([[A[2, 2], A[2, 1], A[2, 0]],
-                  [A[1, 2], A[1, 1], A[1, 0]],
-                  [A[0, 2], A[0, 1], A[0, 0]]])
-    t = np.array([A[2, 3], A[1, 3], A[0, 3]])
-
-    if abs(M[0, 0]) < 0.15:
-        return None
-    a3, b3, c3, d3 = M[0, 0], M[0, 1], M[0, 2], t[0]
-    c2 = M[1, 0] / M[0, 0]
-    a2 = M[1, 1] - c2 * M[0, 1]
-    b2 = M[1, 2] - c2 * M[0, 2]
-    d2 = t[1] - c2 * t[0]
-    if abs(a2) < 0.15:
-        return None
-    K = np.array([[M[0, 0], M[1, 0]], [M[0, 1], M[1, 1]]])
-    if abs(np.linalg.det(K)) < 0.02:
-        return None
-    c1, b1 = np.linalg.solve(K, [M[2, 0], M[2, 1]])
-    a1 = M[2, 2] - c1 * M[0, 2] - b1 * M[1, 2]
-    d1 = t[2] - c1 * t[0] - b1 * t[1]
-    if abs(a1) < 0.15:
-        return None
-    coef = np.array([[a1, b1, c1, d1], [a2, b2, c2, d2],
-                     [a3, b3, c3, d3]], np.float32)
-    return coef, M.astype(np.float32), t.astype(np.float32)
-
-
-@partial(jax.jit, static_argnames=("out_shape", "interpret"))
-def _shear_warp_jit(vol, coef, M, t, background, out_shape, interpret):
-    from .pallas_kernels import shear_x
-
-    Zi, Yi, Xi = vol.shape
-    Zo, Yo, Xo = out_shape
-    (a1, b1, c1, d1), (a2, b2, c2, d2), (a3, b3, c3, d3) = coef
-
-    def ax(n):
-        return jnp.arange(n, dtype=jnp.float32)
-
-    # pass 1: along x on the (Zi, Yi) input grid
-    pos1 = (a1 * ax(Xo)[None, None, :] + b1 * ax(Yi)[None, :, None]
-            + c1 * ax(Zi)[:, None, None] + d1)
-    t1 = shear_x(vol, pos1, interpret=interpret)            # (Zi,Yi,Xo)
-
-    # pass 2: along y (transpose y into lanes)
-    pos2 = (a2 * ax(Yo)[None, None, :] + b2 * ax(Xo)[None, :, None]
-            + c2 * ax(Zi)[:, None, None] + d2)
-    t2 = shear_x(t1.transpose(0, 2, 1), pos2,
-                 interpret=interpret).transpose(0, 2, 1)    # (Zi,Yo,Xo)
-
-    # pass 3: along z
-    pos3 = (a3 * ax(Zo)[None, None, :] + b3 * ax(Yo)[:, None, None]
-            + c3 * ax(Xo)[None, :, None] + d3)
-    out = shear_x(t2.transpose(1, 2, 0), pos3,
-                  interpret=interpret).transpose(2, 0, 1)   # (Zo,Yo,Xo)
-
-    # analytic in-bounds mask from the composed map (exact coords)
-    o = jnp.stack(jnp.meshgrid(ax(Zo), ax(Yo), ax(Xo),
-                               indexing="ij"), axis=-1)     # (Zo,Yo,Xo,3)
-    cin = jnp.einsum("ij,zyxj->zyxi", M, o) + t
-    lim = jnp.asarray([Zi, Yi, Xi], jnp.float32) - 0.5
-    valid = jnp.all((cin > -0.5) & (cin < lim), axis=-1)
-    return jnp.where(valid, out, background)
-
-
-def affine_resample_shear(volume, pixel_matrix, out_shape,
-                          background=None, interpret=None):
-    """Shear-decomposed affine resample: three lane-gather Pallas
-    passes instead of one 8-tap XLA gather (which runs at only
-    ~14 M pts/s on v5e — docs/PERF.md). Rotations whose direct
-    factorization has small pivots (beyond ~60 deg about an axis) get
-    an input-axis-permutation pre-pass (a cheap device transpose), so
-    ANY invertible affine takes the fast lane; only traced matrices
-    fall back to :func:`affine_resample`. Interiors match
-    affine_resample at smooth-volume shear-warp accuracy (mean
-    ~0.03-0.1 sigma at large angles) with a 1-voxel artifact band
-    along the rotated input edges — on noise-like volumes the band
-    error reaches ~2 sigma, so this stays opt-in
-    (config.use_shear_warp) while the exact Pallas tile-slab warp is
-    the default.
-    """
-    if background is None:
-        background = config.background_fill
-    if isinstance(pixel_matrix, jax.core.Tracer):
-        # the decomposition (pivot checks) needs concrete values; under
-        # jit, take the exact gather path instead of crashing in
-        # np.asarray (round-1 ADVICE)
-        return affine_resample(volume, pixel_matrix, out_shape, background)
-    A = np.asarray(pixel_matrix, np.float64)
-    # axis-permutation pre-pass: pick the input-axis permutation
-    # (identity included) with the healthiest pivots — large rotations
-    # fail the direct factorization outright, and near-threshold direct
-    # pivots (e.g. cos 80 deg = 0.17) cost ~20x interior accuracy vs a
-    # well-permuted factorization (round-2 review finding). The
-    # transpose is an HBM-bandwidth relayout, cheap on TPU.
-    vol, A, dec = _permuted_shear_decompose(volume, A)
-    if dec is None:
-        return affine_resample(volume, pixel_matrix, out_shape,
-                               background)
-    coef, M, t = dec
-    vol = jnp.asarray(vol, jnp.float32)
-    if interpret is None:
-        interpret = jax.default_backend() != "tpu"
-    return _shear_warp_jit(vol, tuple(map(tuple, coef.tolist())),
-                           jnp.asarray(M), jnp.asarray(t),
-                           jnp.float32(background),
-                           tuple(int(s) for s in out_shape),
-                           bool(interpret))

@@ -1,6 +1,6 @@
 """Device-side volume assembly kernels.
 
-TPU-first replacement for the reference's host-side per-slice loop
+Device replacement for the reference's host-side per-slice loop
 (reference read/dicom.py:509-534 `_compute_array`) and whole-volume
 numpy moves (`_verify_axial_orientation`, read/dicom.py:655-740): the raw
 slice stack is moved to device once, and rescale + int16 cast + FFS

@@ -1,8 +1,7 @@
 """Batched, shardable volume pipelines.
 
 The flagship compute paths, expressed over a (B, Z, Y, X) batch so a
-whole patient cohort runs in one pjit'd program (BASELINE.md: 50+ CT
-series/sec end-to-end on a v5e-8):
+whole patient cohort runs in one jitted program:
 
 - :func:`preprocess_batch` — fused rescale -> FFS -> isotropic separable
   resample -> Gaussian -> external-threshold mask.
@@ -12,6 +11,8 @@ series/sec end-to-end on a v5e-8):
 """
 
 from __future__ import annotations
+
+import numpy as np
 
 import jax
 import jax.numpy as jnp
@@ -25,48 +26,16 @@ __all__ = ["make_preprocess_fn", "make_registration_step",
            "radiomics_batch", "n4_batch", "rasterize_batch"]
 
 
-def _preproc_chunk(B, chunk):
-    """Resolve the lax.map sub-batch size for the fused preprocess.
-
-    Measured on a v5e (scripts/profile_batch_chunked.py): at B=8 the
-    whole fused program runs ~16 us/series — above the HBM roofline,
-    so the separable-einsum intermediates are VMEM-resident — but at
-    B=64 the same program climbs to ~39 us/series (~700 GB/s of
-    materialized intermediates: the HBM roofline). Splitting the
-    batch into sub-batches of 4 inside ONE program (lax.map) keeps
-    each sub-program in the VMEM-resident regime: B=64 measured
-    20.2 us/series chunked vs 38.7 flat (1.9x); B=8 14.5 vs ~16-18;
-    chunk=4 beat 8 (21.0) and 2 (21.3) at B=64. Flat timings also
-    swing run-to-run (B=32: 18.8-33.3 across compiles — XLA fusion
-    choices vary) while chunk=4 stays in a 14.5-21 band. 'auto'
-    applies the split for B > 4; pass None under GSPMD meshes (a
-    reshape of the sharded batch axis + sequential lax.map would
-    fight the partitioner).
-    """
-    if chunk in (None, 0, False):
-        return None
-    if chunk != "auto":
-        c = int(chunk)
-        return c if 0 < c < B and B % c == 0 else None
-    if B <= 4:
-        return None
-    for c in (4, 3, 2):  # largest divisor <= 4; prime B stays flat
-        if B % c == 0:
-            return c
-    return None
-
-
 def make_preprocess_fn(in_shape, out_shape, ffs_op="ax_rot2",
-                       threshold=-250.0, sigma_vox=1.0, chunk="auto"):
+                       threshold=-250.0, sigma_vox=1.0):
     """Build the jittable fused preprocess step for fixed shapes.
 
     raw (B, Z, Y, X) stored values + per-series slope/intercept ->
     (volumes (B, oz, oy, ox) float32, masks uint8).
 
-    chunk: 'auto' (default) splits large batches into VMEM-friendly
-    sub-batches via lax.map (see _preproc_chunk); an int forces that
-    sub-batch size; None keeps the flat single-einsum form (required
-    when the batch axis is sharded over a Mesh).
+    The six contractions run at Precision.HIGHEST: under the GPU's
+    default TF32 the Gaussian taps move the blurred volume by whole HU
+    and flip threshold-mask voxels.
     """
     Z, Y, X = in_shape
     if ffs_op in ("ax_rot1", "ax_rot3"):
@@ -81,7 +50,7 @@ def make_preprocess_fn(in_shape, out_shape, ffs_op="ax_rot2",
     gy = jnp.asarray(_gauss_kernel_matrix(oy, sigma_vox))
     gx = jnp.asarray(_gauss_kernel_matrix(ox, sigma_vox))
 
-    def _flat(raw, slope, intercept):
+    def step(raw, slope, intercept):
         vol = raw.astype(jnp.float32) * slope[:, None, None, None] \
             + intercept[:, None, None, None]
         if ffs_op == "ax_rot1":
@@ -90,34 +59,22 @@ def make_preprocess_fn(in_shape, out_shape, ffs_op="ax_rot2",
             vol = jnp.rot90(vol, 2, (2, 3))
         elif ffs_op == "ax_rot3":
             vol = jnp.rot90(vol, 3, (2, 3))
-        # separable resample (MXU) fused with the rescale above
-        out = jnp.einsum("ij,bjyx->biyx", mz, vol,
+        # separable resample fused with the rescale above
+        hi = jax.lax.Precision.HIGHEST
+        out = jnp.einsum("ij,bjyx->biyx", mz, vol, precision=hi,
                          preferred_element_type=jnp.float32)
-        out = jnp.einsum("kj,bzjx->bzkx", my, out,
+        out = jnp.einsum("kj,bzjx->bzkx", my, out, precision=hi,
                          preferred_element_type=jnp.float32)
-        out = jnp.einsum("lj,bzyj->bzyl", mx, out,
+        out = jnp.einsum("lj,bzyj->bzyl", mx, out, precision=hi,
                          preferred_element_type=jnp.float32)
-        blurred = jnp.einsum("ij,bjyx->biyx", gz, out,
+        blurred = jnp.einsum("ij,bjyx->biyx", gz, out, precision=hi,
                              preferred_element_type=jnp.float32)
-        blurred = jnp.einsum("kj,bzjx->bzkx", gy, blurred,
+        blurred = jnp.einsum("kj,bzjx->bzkx", gy, blurred, precision=hi,
                              preferred_element_type=jnp.float32)
-        blurred = jnp.einsum("lj,bzyj->bzyl", gx, blurred,
+        blurred = jnp.einsum("lj,bzyj->bzyl", gx, blurred, precision=hi,
                              preferred_element_type=jnp.float32)
         mask = (blurred > threshold).astype(jnp.uint8)
         return out, mask
-
-    def step(raw, slope, intercept):
-        B = raw.shape[0]
-        c = _preproc_chunk(B, chunk)
-        if c is None:
-            return _flat(raw, slope, intercept)
-        n = B // c
-        vols, masks = jax.lax.map(
-            lambda t: _flat(*t),
-            (raw.reshape(n, c, *raw.shape[1:]),
-             slope.reshape(n, c), intercept.reshape(n, c)))
-        return (vols.reshape(B, *vols.shape[2:]),
-                masks.reshape(B, *masks.shape[2:]))
 
     return step
 
@@ -126,19 +83,18 @@ def preprocess_batch(raw, slopes, intercepts, out_shape=(64, 256, 256),
                      ffs_op="none", mesh=None):
     """Host wrapper: run the fused preprocess over a batch, optionally
     sharded over a Mesh."""
-    fn = make_preprocess_fn(raw.shape[1:], out_shape, ffs_op=ffs_op,
-                            chunk=None if mesh is not None else "auto")
-    jfn = jax.jit(fn)
-    if mesh is not None:
-        from .mesh import batch_sharding, volume_sharding
-        jfn = jax.jit(fn, in_shardings=(volume_sharding(mesh),
-                                        batch_sharding(mesh),
-                                        batch_sharding(mesh)),
-                      out_shardings=(volume_sharding(mesh),
-                                     volume_sharding(mesh)))
-    vols, masks = jfn(jnp.asarray(raw), jnp.asarray(slopes),
-                      jnp.asarray(intercepts))
-    return vols, masks
+    fn = make_preprocess_fn(raw.shape[1:], out_shape, ffs_op=ffs_op)
+    if mesh is None:
+        return jax.jit(fn)(jnp.asarray(raw), jnp.asarray(slopes),
+                           jnp.asarray(intercepts))
+    from .mesh import batch_sharding, volume_sharding
+    vs, bs = volume_sharding(mesh), batch_sharding(mesh)
+    jfn = jax.jit(fn, in_shardings=(vs, bs, bs), out_shardings=(vs, vs))
+    # host arrays go straight to their shards: jnp.asarray would first
+    # stage the whole cohort on one device
+    return jfn(jax.device_put(np.asarray(raw), vs),
+               jax.device_put(np.asarray(slopes, np.float32), bs),
+               jax.device_put(np.asarray(intercepts, np.float32), bs))
 
 
 def demons_batch(fixed_batch, moving_batch, spacing_xyz=(1.0, 1.0, 1.0),
@@ -146,17 +102,15 @@ def demons_batch(fixed_batch, moving_batch, spacing_xyz=(1.0, 1.0, 1.0),
                  intensity_threshold=0.001, smooth=True, mesh=None,
                  forces="ssd", lncc_radius=3):
     """Deformable registration over a whole cohort: one compiled
-    program runs B pairs back-to-back (``lax.map``; a vmap here would
-    batch the Pallas warp, which Mosaic cannot lower for
-    ANY-memory-space operands — found by examples/cohort_scale.py on
-    hardware). With a Mesh, shard_map splits the pair axis over 'data'
-    FIRST, so each chip lax.maps only its local pairs (a bare lax.map
-    under jit is a sequential loop GSPMD cannot partition — review
-    finding). Returns (B, Z, Y, X, 3) DVFs in mm.
+    program runs B pairs back-to-back (``lax.map``, which keeps one
+    pair's iteration state live at a time). With a Mesh, shard_map
+    splits the pair axis over 'data' FIRST, so each device lax.maps
+    only its local pairs (a bare lax.map under jit is a sequential loop
+    GSPMD cannot partition). Returns (B, Z, Y, X, 3) DVFs in mm.
 
     method='syn' maps the SyN half-field evolution per pair, then
-    assembles each u2 o u1^{-1} on host through the overflow-verified
-    invert_dvf/compose_dvf (same contract as demons_registration)."""
+    assembles each u2 o u1^{-1} on host through invert_dvf/compose_dvf
+    (same contract as demons_registration)."""
     from ..ops.registration.demons import _demons_core, _syn_core
 
     if forces not in ("ssd", "lncc"):
@@ -173,13 +127,13 @@ def demons_batch(fixed_batch, moving_batch, spacing_xyz=(1.0, 1.0, 1.0),
     def single(args):
         f, m = args
         if method == "syn":
-            u1, u2, ovf = _syn_core(
+            u1, u2 = _syn_core(
                 f, m, sp, float(std), jnp.float32(step),
                 jnp.float32(intensity_threshold), int(iterations),
                 bool(smooth), forces, int(lncc_radius))
             # stack the halves on a leading axis so the map result
             # stays a single array per pair
-            return jnp.stack([u1, u2]), ovf
+            return jnp.stack([u1, u2])
         return _demons_core(f, m, sp, float(std), jnp.float32(step),
                             jnp.float32(intensity_threshold),
                             int(iterations), method, bool(smooth),
@@ -192,24 +146,14 @@ def demons_batch(fixed_batch, moving_batch, spacing_xyz=(1.0, 1.0, 1.0),
     else:
         from jax.sharding import PartitionSpec as P
 
-        from .mesh import shard_map_nocheck
         spec = P("data")
-        jfn = jax.jit(shard_map_nocheck(fn, mesh,
-                                        in_specs=(spec, spec),
-                                        out_specs=(spec, spec)))
-    dvfs, ovfs = jfn(fixed, moving)
-    total_ovf = float(jnp.sum(ovfs))
-    if total_ovf > 0:
-        # same diagnostic contract as demons_registration: overflowed
-        # taps took the background value (review finding)
-        import warnings
-        warnings.warn(
-            f"demons_batch: {total_ovf:.0f} warp taps exceeded the "
-            "kernel slab caps (treated as background). Increase "
-            "smoothing or reduce step.", RuntimeWarning)
+        # check_vma=False: the single-pair cores start their loop
+        # carries from constants (zero fields), which the varying-axes
+        # check rejects inside a 'data'-manual body
+        jfn = jax.jit(jax.shard_map(fn, mesh=mesh, in_specs=(spec, spec),
+                                    out_specs=spec, check_vma=False))
+    dvfs = jfn(fixed, moving)
     if method == "syn":
-        import numpy as np
-
         from ..ops.registration.dvf import compose_dvf, invert_dvf
         halves = np.asarray(dvfs)            # (B, 2, Z, Y, X, 3) mm
         sp_np = np.asarray(spacing_xyz, np.float32)
@@ -248,7 +192,8 @@ def make_registration_step(vol_shape, lr=0.05, stride=2):
 
     def single_loss(params, ref, mov):
         m = pose_to_matrix(params * scale, center)
-        mov_pix = coords_h @ m.T
+        mov_pix = jnp.matmul(coords_h, m.T,
+                             precision=jax.lax.Precision.HIGHEST)
         ref_vals = _trilinear(ref, coords, jnp.float32(0.0))
         vals = _trilinear(mov, mov_pix[:, :3], jnp.float32(0.0))
         return jnp.mean((vals - ref_vals) ** 2)
@@ -275,8 +220,7 @@ def compare_masks_batch(masks_a, masks_b, spacing, tolerance_mm=2.0,
     """Cohort-scale segmentation QA: the full Dice/HD95/ASSD/
     surface-Dice panel for B mask pairs in ONE compiled program,
     optionally sharded over the mesh's 'data' axis (each chip runs its
-    local pairs; the EDT min-plus passes are pure XLA, so a plain
-    vmap batches them — no Pallas in this path).
+    local pairs; a plain vmap batches the EDT min-plus passes).
 
     masks_a/masks_b: (B, Z, Y, X) bool/uint8; spacing [sx, sy, sz] mm
     (shared across the batch — resample first if grids differ).
@@ -286,7 +230,6 @@ def compare_masks_batch(masks_a, masks_b, spacing, tolerance_mm=2.0,
     """
     from functools import partial
 
-    import numpy as np
 
     from ..ops.edt import _surface_metrics_jit
 
@@ -315,23 +258,24 @@ def compare_masks_batch(masks_a, masks_b, spacing, tolerance_mm=2.0,
 
 def _data_sharded_call(name, mesh, fn, arrays):
     """Run a vmapped cohort kernel over the mesh's 'data' axis: batch
-    divisibility check, shard_map (check_vma=False — the body may hit
-    a Pallas kernel), host->device sharded placement. Returns
-    (out, multiproc); multi-process callers must _replicate outputs
-    before np.asarray (see parallel/halo.py)."""
+    divisibility check, shard_map, host->device sharded placement.
+    Returns (out, multiproc); multi-process callers must _replicate
+    outputs before np.asarray (see parallel/halo.py)."""
     from jax.sharding import PartitionSpec as P
 
     from .halo import _put_sharded
-    from .mesh import shard_map_nocheck
     n_data = mesh.shape["data"]
     B = arrays[0].shape[0]
     if B % n_data:
         raise ValueError(f"{name}: batch {B} not divisible by the "
                          f"'data' axis ({n_data})")
     spec = P("data")
-    jfn = jax.jit(shard_map_nocheck(fn, mesh,
-                                    in_specs=(spec,) * len(arrays),
-                                    out_specs=spec))
+    # check_vma=False: the vmapped single-pair cores (gamma scan,
+    # rasterizer XOR scan) start loop carries from constants, which the
+    # varying-axes check rejects inside a 'data'-manual body
+    jfn = jax.jit(jax.shard_map(fn, mesh=mesh,
+                                in_specs=(spec,) * len(arrays),
+                                out_specs=spec, check_vma=False))
     vs, multiproc = _put_sharded(mesh, [(a, spec) for a in arrays])
     return jfn(*vs), multiproc
 
@@ -354,7 +298,6 @@ def dvh_batch(doses, masks, voxel_volume_cc, max_dose=150, increment=5,
     Pairs with an empty mask come back NaN (volume 0), matching the
     host path's early-out. With ``mesh``, B must divide by 'data'.
     """
-    import numpy as np
 
     from ..ops.dvh import D_VALUES, _dvh_core
 
@@ -417,7 +360,6 @@ def gamma_batch(ref_doses, eval_doses, spacing, dose_pct=3.0,
     All-zero reference grids report pass_rate 100 with 0 analysed
     voxels (the per-pair path raises instead).
     """
-    import numpy as np
 
     from ..ops.gamma import (_decompose_offsets, _gamma_fn,
                              fine_grid_layout, upsample_to_fine)
@@ -490,7 +432,7 @@ def radiomics_batch(volumes, masks, spacing, bin_width=None, n_bins=32,
                     alpha=0, families=None, mesh=None):
     """Cohort radiomics: the texture-matrix counting for B (volume,
     ROI) pairs — the heavy part of a radiomics run — in ONE compiled
-    program (vmapped one-hot MXU counting, ops/radiomics.py),
+    program (vmapped one-hot matmul counting, ops/radiomics.py),
     optionally sharded over the mesh's 'data' axis. The tiny per-pair
     matrices come back to host where the feature formulas (and the
     inherently-host shape/GLSZM families) evaluate per pair.
@@ -501,7 +443,6 @@ def radiomics_batch(volumes, masks, spacing, bin_width=None, n_bins=32,
     the exact ``ops.radiomics.compute_radiomics`` schema. With
     ``mesh``, B must divide by 'data'.
     """
-    import numpy as np
 
     from ..ops import radiomics as rad
 
@@ -602,7 +543,6 @@ def n4_batch(volumes, masks=None, shrink=4, n_bins=200, fwhm=0.15,
     With ``mesh``, B must divide by 'data'. Other knobs as
     :func:`medicalimageanalysis_tpu.ops.n4.n4_bias_correction`.
     """
-    import numpy as np
 
     from ..ops import n4 as _n4
 
@@ -683,7 +623,6 @@ def rasterize_batch(contour_sets, dimensions, plane="Axial", mesh=None):
     full-frame kernel on its padded polygons — the multi-chip scaling
     path, value-identical to the pooled one).
     """
-    import numpy as np
 
     from ..ops.rasterize import (_bucket, _polygon_bitmaps,
                                  _scatter_xor, stage_polygons,

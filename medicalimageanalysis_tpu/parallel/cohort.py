@@ -23,8 +23,8 @@ def distributed_cohort_batch(local_volumes, mesh):
     """Form a GLOBAL (B_total, Z, Y, X) device array over the mesh's
     'data' axis from this process's local stack — the multi-host cohort
     ingest pattern (SURVEY §2.11): every host parses and assembles its
-    own files; only device shards exist globally, and DCN moves nothing
-    until a collective asks for it.
+    own files; only device shards exist globally, and nothing crosses
+    hosts until a collective asks for it.
 
     local_volumes : list/stack of this process's (Z, Y, X) arrays; all
         processes must contribute the same count and shape.
@@ -76,8 +76,7 @@ def ingest_cohort(folder_path=None, file_list=None, out_shape=None,
     for shape, group in by_shape.items():
         out = tuple(out_shape) if out_shape is not None else shape
         fn = make_preprocess_fn(shape, out, ffs_op="none",
-                                threshold=threshold, sigma_vox=sigma_vox,
-                                chunk=None if mesh is not None else "auto")
+                                threshold=threshold, sigma_vox=sigma_vox)
         if mesh is not None:
             jfn = jax.jit(fn, in_shardings=(volume_sharding(mesh),
                                             batch_sharding(mesh),

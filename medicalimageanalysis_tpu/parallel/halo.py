@@ -4,8 +4,7 @@ SURVEY.md §5's sequence-parallel analogue: very large single volumes
 shard their z-axis over the 'space' mesh axis; stencil kernels
 (Gaussian here, the demons smoothing pattern) exchange a halo of
 boundary slices with ring neighbors via lax.ppermute so each shard
-convolves locally — collectives ride ICI, compute never leaves the
-shard.
+convolves locally — only the halo rows cross between devices.
 """
 
 from __future__ import annotations
@@ -16,11 +15,6 @@ import jax
 import jax.numpy as jnp
 from jax import lax
 from jax.sharding import NamedSharding, PartitionSpec as P
-
-try:
-    from jax import shard_map  # jax >= 0.8
-except ImportError:  # pragma: no cover
-    from jax.experimental.shard_map import shard_map
 
 __all__ = ["gaussian_z_sharded", "warp_z_sharded", "demons_z_sharded",
            "demons_batch_z_sharded"]
@@ -68,17 +62,19 @@ def gaussian_z_sharded(volume, sigma_vox, mesh, axis_name="space"):
         return out
 
     sharding = NamedSharding(mesh, P(axis_name, None, None))
-    vol = jax.device_put(jnp.asarray(volume, jnp.float32), sharding)
-    fn = shard_map(local_fn, mesh=mesh,
-                   in_specs=P(axis_name, None, None),
-                   out_specs=P(axis_name, None, None))
+    # host array straight to its shards (jnp.asarray would first stage
+    # the whole volume on one device)
+    vol = jax.device_put(np.asarray(volume, np.float32), sharding)
+    fn = jax.shard_map(local_fn, mesh=mesh,
+                       in_specs=P(axis_name, None, None),
+                       out_specs=P(axis_name, None, None))
     return jax.jit(fn)(vol)
 
 
 def _exchange_z(block, h, n_shards, axis_name, z_axis):
     """Halo-extend a shard's block by h rows along `z_axis` via ring
     ppermute, edge-replicating at the global volume boundaries (the
-    replicated rows reproduce the warp kernel's edge-clamped taps and
+    replicated rows reproduce the warp's edge-clamped taps and
     the Gaussian matrix's edge-replicate rows exactly)."""
     idx = lax.axis_index(axis_name)
 
@@ -151,8 +147,8 @@ def warp_z_sharded(volume, dvf_mm, mesh, spacing_xyz=(1.0, 1.0, 1.0),
     :func:`demons_z_sharded`'s field when the pair never fit one chip.
 
     SPMD structure: each shard halo-extends its moving slab by `halo`
-    z-rows (ONE ring ppermute over ICI), then runs the Pallas tile-slab
-    warp locally in fused 'disp' mode. x/y displacements are unlimited
+    z-rows (ONE ring ppermute), then runs the displacement warp
+    locally. x/y displacements are unlimited
     (rows are shard-local); z displacements are served from the halo,
     so |dz| is bounded by ``halo - 2`` rows. Points that need more
     reach than the halo provides take `background` and are COUNTED —
@@ -164,7 +160,7 @@ def warp_z_sharded(volume, dvf_mm, mesh, spacing_xyz=(1.0, 1.0, 1.0),
     by the shard count. Returns the warped (Z, Y, X) volume (sharded
     jax.Array on the mesh; np.asarray pulls it to host).
     """
-    from ..ops.pallas_warp import warp_disp_jit
+    from ..ops.warp import warp_disp
 
     n_shards = mesh.shape[axis_name]
     # stay HOST-side until the sharded placement (see demons_z_sharded)
@@ -189,50 +185,38 @@ def warp_z_sharded(volume, dvf_mm, mesh, spacing_xyz=(1.0, 1.0, 1.0),
         cap = jnp.float32(H - 2)
         dz = disp_loc[2]
         gz = z_base + zz + dz
-        # the single-device kernel backgrounds samples outside
+        # the single-device warp backgrounds samples outside
         # [0, Z-1]; the halo slab's edge-replicated global-boundary
         # rows would edge-interp instead, so mask on GLOBAL z here
         z_in = (gz >= 0.0) & (gz <= jnp.float32(Z - 1))
         over_cap = jnp.abs(dz) > cap
         disp = jnp.stack([disp_loc[0], disp_loc[1],
                           jnp.clip(dz, -cap, cap) + jnp.float32(H)])
-        w, kovf = warp_disp_jit(slab, disp, background,
-                                with_overflow=True)
+        w = warp_disp(slab, disp, background)
         # a cap-clamped in-volume sample is wrong either way:
         # background + counted (exact-or-backgrounded contract)
         out = jnp.where(over_cap | ~z_in, bg, w[0])
         halo_ovf = jnp.sum((over_cap & z_in).astype(jnp.float32))
-        return (out, lax.psum(halo_ovf, axis_name),
-                lax.psum(kovf, axis_name))
+        return out, lax.psum(halo_ovf, axis_name)
 
-    from .mesh import shard_map_nocheck
-    fn = shard_map_nocheck(
-        local_fn, mesh,
+    fn = jax.shard_map(
+        local_fn, mesh=mesh,
         in_specs=(P(None, axis_name, None, None),
                   P(None, axis_name, None, None)),
-        out_specs=(P(axis_name, None, None), P(), P()))
+        out_specs=(P(axis_name, None, None), P()))
     run = jax.jit(lambda v, d: fn(v[None], d))
 
     disp_host = np.moveaxis(dvf / sp, -1, 0)  # (3, Z, Y, X) voxels
     (v, d), multiproc = _put_sharded(mesh, [
         (volume, P(axis_name, None, None)),
         (disp_host, P(None, axis_name, None, None))])
-    out, halo_ovf, kovf = run(v, d)
-    import warnings
+    out, halo_ovf = run(v, d)
     if float(jax.device_get(halo_ovf).ravel()[0]) > 0:
+        import warnings
         warnings.warn(
             "warp_z_sharded: z-displacements exceeded the halo reach "
             f"(cap {H - 2} rows); affected voxels took the background. "
             "Increase halo or use fewer z-shards.", RuntimeWarning)
-    if float(jax.device_get(kovf).ravel()[0]) > 0:
-        # in-plane (x/y) spread blew the kernel slab window — a deeper
-        # halo cannot fix that (review finding: same contract split as
-        # demons_z_sharded)
-        warnings.warn(
-            "warp_z_sharded: warp taps exceeded the kernel slab caps "
-            "(treated as background). Smooth the field or warp with "
-            "ops.registration.dvf.warp_volume (auto-sized windows).",
-            RuntimeWarning)
     if multiproc:
         out = _replicate(mesh, out)
     return out
@@ -251,7 +235,7 @@ def _make_pair_loop(n_shards, axis_name, Z, Zl, Y, X, H, sp, taps_j,
     GLOBAL-EDGE ZEROING (the dense path's clipped basis matrices
     truncate windows at the volume edge — edge replication here would
     silently diverge from the single-device field)."""
-    from ..ops.pallas_warp import warp_disp_jit
+    from ..ops.warp import warp_disp
 
     def local_loop(f_loc, stack_loc, gf_loc):
         # f_loc (Zl,Y,X); stack_loc (B,Zl,Y,X); gf_loc (3,Zl,Y,X)
@@ -264,12 +248,13 @@ def _make_pair_loop(n_shards, axis_name, Z, Zl, Y, X, H, sp, taps_j,
         cap = jnp.float32(H - 2)
 
         def gauss_smooth(u):
-            # y/x: shard-local MXU contractions; z: taps over a
+            # y/x: shard-local contractions; z: taps over a
             # radius-row halo (same taps + edge replication as the
             # dense _gauss_kernel_matrix -> identical result)
-            u = jnp.einsum("kj,czjx->czkx", my, u,
+            hi = lax.Precision.HIGHEST
+            u = jnp.einsum("kj,czjx->czkx", my, u, precision=hi,
                            preferred_element_type=jnp.float32)
-            u = jnp.einsum("lj,czyj->czyl", mx, u,
+            u = jnp.einsum("lj,czyj->czyl", mx, u, precision=hi,
                            preferred_element_type=jnp.float32)
             uslab = _exchange_z(u, radius, n_shards, axis_name, 1)
             acc = jnp.zeros_like(u)
@@ -318,15 +303,13 @@ def _make_pair_loop(n_shards, axis_name, Z, Zl, Y, X, H, sp, taps_j,
             vmean = lax.psum(jnp.sum(var_f), axis_name) / npts
             v_eps = 1e-5 * jnp.maximum(vmean, 1e-12)
 
-        def body(_, carry):
-            u_vox, ovf = carry
+        def body(_, u_vox):
             uz = jnp.clip(u_vox[2], -cap, cap)
             disp = jnp.stack([u_vox[0], u_vox[1], uz + jnp.float32(H)])
-            w, dovf = warp_disp_jit(slab, disp, 0.0, with_overflow=True)
-            ovf = ovf + dovf
+            w = warp_disp(slab, disp, 0.0)
             # global-z bounds: the halo slab edge-replicates past the
             # volume, but out-of-volume samples must take background 0
-            # exactly like the single-device kernel's inside test
+            # exactly like the single-device warp's inside test
             gz = z_base + zz_loc + uz
             z_in = (gz >= 0) & (gz <= jnp.float32(Z - 1))
             w = jnp.where(z_in[None], w, 0.0)
@@ -365,15 +348,13 @@ def _make_pair_loop(n_shards, axis_name, Z, Zl, Y, X, H, sp, taps_j,
             u_new = u_vox + upd_mm / spc
             if smooth:
                 u_new = gauss_smooth(u_new)
-            return u_new, ovf
+            return u_new
 
         # derive u0 from a shard-local value: the loop carry must be
         # 'varying' over the space axis (shard_map typing), which a
         # bare jnp.zeros is not; XLA folds the 0*f term away
         u0 = jnp.zeros((3, Zl, Y, X), jnp.float32) + 0.0 * f_loc[None]
-        u, ovf = lax.fori_loop(0, int(iterations), body,
-                               (u0, 0.0 * jnp.sum(f_loc)))
-        return u, lax.psum(ovf, axis_name)
+        return lax.fori_loop(0, int(iterations), body, u0)
 
     return local_loop
 
@@ -386,26 +367,22 @@ def demons_z_sharded(fixed, moving, mesh, spacing_xyz=(1.0, 1.0, 1.0),
     `axis_name` mesh axis (SPMD sequence-parallel analogue for volumes
     too large for a single chip's HBM, or to put all chips on one pair).
 
-    SPMD structure (the TPU-native design, not a translation):
+    SPMD structure:
 
     - the moving image + its gradient stack is halo-extended by `halo`
-      z-rows ONCE (loop-invariant ring ppermute, rides ICI);
-    - every iteration runs the Pallas tile-slab warp per shard on its
-      local halo'd slab (the fused-coordinate 'disp' mode, sampling at
-      local row + halo + u_z), pointwise force math locally, one
-      `lax.pmax` scalar for the step normalization, and — only when
-      smoothing — a radius-row halo ppermute for the z pass (y/x passes
-      are MXU matmuls, shard-local);
+      z-rows ONCE (loop-invariant ring ppermute);
+    - every iteration runs the displacement warp per shard on its
+      local halo'd slab (sampling at local row + halo + u_z), pointwise
+      force math locally, one `lax.pmax` scalar for the step
+      normalization, and — only when smoothing — a radius-row halo
+      ppermute for the z pass (y/x passes are shard-local matmuls);
     - per-shard z-displacement is clamped to ``halo - 2`` rows for
       sampling (document/raise `halo` for organ-scale motion; the x/y
       components are unlimited). Within that bound the semantics match
-      the single-device :func:`demons_registration` exactly; on the XLA
-      backend the fields agree to f32 tolerance
-      (tests/test_parallel.py), while on TPU the two Pallas execution
-      orders can diverge at the ``|diff| > threshold`` knife-edge
-      (demons is iteratively bistable there) — both are valid demons
-      trajectories with equal warp residuals (measured 0.1225 vs 0.1227
-      on a 1.53-baseline pair; docs/PERF.md).
+      the single-device :func:`demons_registration`; the fields agree
+      to f32 tolerance (tests/test_parallel.py). Demons is iteratively
+      bistable at the ``|diff| > threshold`` knife-edge, so a different
+      summation order can move single voxels onto the other branch.
 
     fixed/moving: (Z, Y, X) with Z divisible by the shard count.
     Returns a (Z, Y, X, 3) mm DVF (host numpy).
@@ -414,7 +391,6 @@ def demons_z_sharded(fixed, moving, mesh, spacing_xyz=(1.0, 1.0, 1.0),
     of the windowed moments rides an extra lncc_radius-row halo).
     """
     from ..ops.filters import _gauss_kernel_matrix
-    from ..ops.pallas_warp import warp_disp_jit
 
     if method not in ("demons", "fast"):
         raise ValueError("sharded demons supports 'demons' and 'fast'; "
@@ -466,26 +442,17 @@ def demons_z_sharded(fixed, moving, mesh, spacing_xyz=(1.0, 1.0, 1.0),
             stack = jnp.stack([m, mx_ / sp[0], my_ / sp[1], mz_ / sp[2]])
         else:
             stack = m[None]
-        from .mesh import shard_map_nocheck
-        fn = shard_map_nocheck(
-            local_loop, mesh,
+        fn = jax.shard_map(
+            local_loop, mesh=mesh,
             in_specs=(P(axis_name, None, None),
                       P(None, axis_name, None, None),
                       P(None, axis_name, None, None)),
-            out_specs=(P(None, axis_name, None, None), P()))
+            out_specs=P(None, axis_name, None, None))
         return fn(f, stack, grad_f)
 
     spec = P(axis_name, None, None)
     (f, m), multiproc = _put_sharded(mesh, [(fixed, spec), (moving, spec)])
-    u, ovf = run(f, m)
-    if float(jax.device_get(ovf).ravel()[0]) > 0:
-        # same diagnostic contract as demons_registration (review
-        # finding): overflowed taps took the background value
-        import warnings
-        warnings.warn(
-            "demons_z_sharded: warp taps exceeded the kernel slab caps "
-            "(treated as background). Increase smoothing or reduce "
-            "step.", RuntimeWarning)
+    u = run(f, m)
     if multiproc:
         # replicate so every process can read the full field
         u = _replicate(mesh, u)
@@ -554,10 +521,8 @@ def demons_batch_z_sharded(fixed_batch, moving_batch, mesh,
 
     def local_batch(f_loc, stack_loc, gf_loc):
         # f_loc (Bl, Zl, Y, X); stack (Bl, C, Zl, Y, X); gf (Bl, 3, ...)
-        def one(args):
-            return pair_loop(*args)
-        u, ovf = lax.map(one, (f_loc, stack_loc, gf_loc))
-        return u, jnp.sum(ovf, keepdims=True)
+        return lax.map(lambda args: pair_loop(*args),
+                       (f_loc, stack_loc, gf_loc))
 
     @jax.jit
     def run(f, m):
@@ -569,31 +534,17 @@ def demons_batch_z_sharded(fixed_batch, moving_batch, mesh,
                 [m, mx_ / sp[0], my_ / sp[1], mz_ / sp[2]], axis=1)
         else:
             stack = m[:, None]
-        from .mesh import shard_map_nocheck
-        fn = shard_map_nocheck(
-            local_batch, mesh,
+        fn = jax.shard_map(
+            local_batch, mesh=mesh,
             in_specs=(P(data_axis, space_axis, None, None),
                       P(data_axis, None, space_axis, None, None),
                       P(data_axis, None, space_axis, None, None)),
-            out_specs=(P(data_axis, None, space_axis, None, None),
-                       P(data_axis)))
+            out_specs=P(data_axis, None, space_axis, None, None))
         return fn(f, stack, grad_f)
 
     spec = P(data_axis, space_axis, None, None)
     (f, m), multiproc = _put_sharded(mesh, [(fixed, spec), (moving, spec)])
-    u, ovf = run(f, m)
-    if multiproc:
-        # ovf is P(data)-sharded; device_get on an array spanning
-        # non-addressable devices raises — reduce to a replicated
-        # scalar first (review finding)
-        ovf = jax.jit(jnp.sum,
-                      out_shardings=NamedSharding(mesh, P()))(ovf)
-    if float(np.sum(jax.device_get(ovf))) > 0:
-        import warnings
-        warnings.warn(
-            "demons_batch_z_sharded: warp taps exceeded the kernel "
-            "slab caps (treated as background). Increase smoothing or "
-            "reduce step.", RuntimeWarning)
+    u = run(f, m)
     if multiproc:
         u = _replicate(mesh, u)
     return np.moveaxis(np.asarray(u), 1, -1) * np.asarray(spacing_xyz)

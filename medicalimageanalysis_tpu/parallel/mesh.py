@@ -1,10 +1,11 @@
 """Device-mesh helpers for batch-of-volumes scaling.
 
 The reference is single-process/single-node (SURVEY.md §2.11); this is
-the new TPU-native scaling layer: a ('data', 'space') Mesh where 'data'
-shards the batch of series and 'space' shards the volume z-axis, with
-XLA inserting the collectives (gathers across 'space' for resample,
-psum for registration reductions).
+the scaling layer: a ('data', 'space') Mesh where 'data' shards the
+batch of series and 'space' shards the volume z-axis, with XLA
+inserting the collectives (gathers across 'space' for resample, psum
+for registration reductions). Every device reaches every other at the
+same rate, so the mesh shape follows the algorithm alone.
 """
 
 from __future__ import annotations
@@ -15,32 +16,13 @@ import jax
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
 __all__ = ["make_mesh", "volume_sharding", "batch_sharding",
-           "replicated_sharding", "initialize_distributed",
-           "shard_map_nocheck"]
-
-
-def shard_map_nocheck(f, mesh, in_specs, out_specs):
-    """shard_map with varying-axes validation off — required when the
-    per-shard body dispatches a Pallas kernel (pallas_call outputs
-    carry no vma metadata and the validator rejects them; found on
-    hardware by examples/cohort_scale.py). Handles both the jax>=0.8
-    `check_vma` and the legacy `check_rep` keyword."""
-    try:
-        from jax import shard_map
-    except ImportError:  # pragma: no cover
-        from jax.experimental.shard_map import shard_map
-    try:
-        return shard_map(f, mesh=mesh, in_specs=in_specs,
-                         out_specs=out_specs, check_vma=False)
-    except TypeError:  # pragma: no cover - legacy jax
-        return shard_map(f, mesh=mesh, in_specs=in_specs,
-                         out_specs=out_specs, check_rep=False)
+           "replicated_sharding", "initialize_distributed"]
 
 
 def initialize_distributed(coordinator_address=None, num_processes=None,
                            process_id=None):
     """Multi-host hook: initialize jax.distributed so make_mesh spans
-    hosts (cohort ingest over DCN, collectives over ICI). No-op when
+    hosts. No-op when
     the env provides no coordinator (single-host)."""
     import os
     if coordinator_address is None:

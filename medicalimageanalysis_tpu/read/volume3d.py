@@ -1,7 +1,7 @@
 """Read3D: CT/MR/PT series -> geometry-correct 3D volume.
 
 Behavior-parity rebuild of reference read/dicom.py:428-827, re-architected
-for TPU: metadata decisions (orientation, plane, spacing, FFS corner
+for an accelerator: metadata decisions (orientation, plane, spacing, FFS corner
 analysis, skipped-slice detection) run on host; the array work (decode
 stack -> rescale -> int16 -> FFS reorientation) runs as one fused XLA
 program on device (ops/volume.assemble_volume).

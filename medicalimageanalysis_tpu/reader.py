@@ -10,8 +10,6 @@ from __future__ import annotations
 import os
 from pathlib import Path
 
-import psutil
-
 __all__ = ["check_memory", "file_parser", "read_dicoms", "read_3mf",
            "read_mhd", "read_stl", "read_vtk", "read_ply", "read_obj",
            "read_nifti"]
@@ -25,8 +23,20 @@ def check_memory(files):
         for file_list in files.values()
         for file in file_list
     )
-    available_memory = psutil.virtual_memory().available
-    return (available_memory - total_size) / 1e9
+    return (_available_memory_bytes() - total_size) / 1e9
+
+
+def _available_memory_bytes():
+    """MemAvailable from /proc/meminfo (Linux); elsewhere the free
+    physical pages from sysconf."""
+    try:
+        with open("/proc/meminfo") as f:
+            for line in f:
+                if line.startswith("MemAvailable:"):
+                    return int(line.split()[1]) * 1024
+    except OSError:
+        pass
+    return os.sysconf("SC_AVPHYS_PAGES") * os.sysconf("SC_PAGE_SIZE")
 
 
 def file_parser(folder_path=None, file_list=None, exclude_files=None):

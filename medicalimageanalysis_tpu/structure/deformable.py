@@ -461,7 +461,7 @@ class Deformable(object):
         (N, 3) mm arrays). Moving points are pre-mapped through
         inv(rigid_matrix) — the same composition as update_pois — so
         the spline carries only the residual deformation; the dense
-        field is evaluated over the reference grid on the MXU
+        field is evaluated over the reference grid as matmuls
         (ops/registration/tps.py) and stored in the package's
         point-displacement convention (p + d(p) lands in the
         reference frame). Exact at the landmarks when
@@ -555,14 +555,14 @@ class Deformable(object):
                                      ratio=1):
         """Invert the DVF and warp a volume already rigid-resampled
         onto the reference grid (shared by create_image /
-        update_dose). Both stages are Pallas tile-slab grid warps —
-        the point-wise gather path ran at 14 M pts/s (docs/PERF.md)."""
+        update_dose). Both stages are grid warps (ops/warp.py)."""
         dvf = np.asarray(self.dvf) * float(ratio)
         inv = invert_dvf(dvf, self.spacing)
 
+        import jax
         import jax.numpy as jnp
 
-        from ..ops.pallas_warp import affine_coords, field_warp
+        from ..ops.warp import affine_coords, field_warp, warp_disp
 
         ref = Data.image[self.reference_name]
         ref_p2p = geo.pixel_to_position_matrix(ref.matrix, ref.spacing,
@@ -579,14 +579,13 @@ class Deformable(object):
                           background=0.0)           # (3,Z,Y,X) mm xyz
         # displaced ref-pixel sample coords: pix + L @ disp (L = linear
         # part of position->pixel; pos2pix(pos)=pix grid identity here).
-        # The base grid never materializes: the fused-coordinate disp
-        # kernel mode adds it in-register (docs/PERF.md round-3 profile)
-        from ..ops.pallas_warp import field_warp_disp
+        # HIGHEST: a TF32 product moves the sample point by ~1e-3 voxel
         L = np.asarray(geo.position_to_pixel_matrix(
             ref.matrix, ref.spacing, ref.origin))[:3, :3] \
             .astype(np.float32)
-        disp_pix = jnp.einsum("ij,jzyx->izyx", jnp.asarray(L), disp)
-        return np.asarray(field_warp_disp(
+        disp_pix = jnp.einsum("ij,jzyx->izyx", jnp.asarray(L), disp,
+                              precision=jax.lax.Precision.HIGHEST)
+        return np.asarray(warp_disp(
             jnp.asarray(resampled, jnp.float32), disp_pix,
             background=background))
 
@@ -655,7 +654,7 @@ class Deformable(object):
         reference only warps ROI meshes, structure/deformable.py:
         961-1001; mesh warping loses holes/topology that voxel
         indicator warping keeps). Rigid resample + field warp of the
-        float indicator through the shared Pallas warp stages, then
+        float indicator through the shared warp stages, then
         ``>= threshold``. Returns a (Z, Y, X) uint8 mask on the
         reference grid."""
         if self.dvf is None:

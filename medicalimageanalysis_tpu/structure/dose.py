@@ -16,7 +16,7 @@ import numpy as np
 
 from ..data import Data
 from ..dicom import generate_uid
-from ..ops.dvh import dvh_statistics
+from ..ops.dvh import count_below, dvh_statistics
 from ..ops.resample import affine_resample, compose_pixel_matrix
 from .common import GeometryQueriesMixin, MetadataMixin, ViewOpsMixin
 from .image import Display as ImageDisplay
@@ -151,9 +151,7 @@ class Dose(MetadataMixin, GeometryQueriesMixin, ViewOpsMixin):
         if max_dose is None:
             max_dose = float(dose_in_roi.max()) * 1.05 + 1e-6
         bins = np.linspace(0.0, max_dose, n_bins)
-        from ..ops.pallas_kernels import dose_below_histogram
-        below = np.asarray(dose_below_histogram(
-            dose_in_roi, np.ones_like(dose_in_roi), bins))
+        below = np.asarray(count_below(dose_in_roi, bins))
         volume_percent = 100.0 * (1.0 - below / dose_in_roi.size)
         return bins, volume_percent
 

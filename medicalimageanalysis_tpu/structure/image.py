@@ -511,7 +511,7 @@ class Image(MetadataMixin, GeometryQueriesMixin, ViewOpsMixin):
         """Resample this image's volume onto another image's grid —
         BEYOND-PARITY convenience (the reference would need the full
         sitk.Resample dance; here one composed pixel->pixel matrix
-        feeds the Pallas affine warp). Both grids must share a frame
+        feeds the affine warp). Both grids must share a frame
         of reference (same-study CT/PT/MR or dose grids); for
         cross-study resampling compose a Rigid and use
         Rigid.create_image.
@@ -580,7 +580,7 @@ class Image(MetadataMixin, GeometryQueriesMixin, ViewOpsMixin):
         correction, and MR needs it before intensity registration /
         histogram matching / radiomics. Device implementation in
         ops/n4.py (exact weighted-least-squares B-spline smoother as
-        separable MXU contractions + host histogram sharpening).
+        separable matrix contractions + host histogram sharpening).
 
         mask_roi: optional ROI name bounding the fit (default: all
         positive voxels); control_spacing_mm: floor of the B-spline
@@ -715,11 +715,10 @@ class Image(MetadataMixin, GeometryQueriesMixin, ViewOpsMixin):
         Bit-identical to the per-ROI path. Contoured ROIs are grouped
         by slicing plane, one pooled pass per plane present (almost
         always one); ROIs with no contours (mesh-only / stub) fall
-        back to their own ``compute_mask``. Each pooled pass is gated
-        by the same measured-link-rate economics as the per-ROI path
-        (_pick_raster_backend): on a slow link the pooled (B, Z, Y, X)
-        mask download loses to host cv2, so the group loops
-        ``compute_mask`` instead. Returns {name: (Z, Y, X) uint8}."""
+        back to their own ``compute_mask``. Each pooled pass takes the
+        same backend as the per-ROI path (_pick_raster_backend): where
+        that is host cv2, the group loops ``compute_mask`` instead.
+        Returns {name: (Z, Y, X) uint8}."""
         from ..parallel.batch import rasterize_batch
         from ..utils.convert.contour import _pick_raster_backend
 
@@ -743,15 +742,7 @@ class Image(MetadataMixin, GeometryQueriesMixin, ViewOpsMixin):
                     self._roi_mask_cache_put(n, roi, out[n])
             for plane in sorted(set(plane_of.values())):
                 group = [n for n in names if plane_of.get(n) == plane]
-                d0, d1, d2 = dims
-                H, W = ((d1, d2) if plane == "Axial" else
-                        (d0, d2) if plane == "Coronal" else (d0, d1))
-                n_polys = sum(len(self.rois[n].contour_pixel)
-                              for n in group)
-                # pooled pass downloads len(group) full volumes
-                backend = _pick_raster_backend(
-                    n_polys, len(group) * d0 * d1 * d2 // (H * W), H, W)
-                if backend == "device":
+                if _pick_raster_backend() == "device":
                     masks = rasterize_batch(
                         [self.rois[n].contour_pixel for n in group],
                         dims, plane=plane)

@@ -6,7 +6,7 @@ its Deformable only warps ROI meshes (structure/deformable.py:961-1001).
 Adaptive-radiotherapy workflows need the composition: warp each
 fraction's dose through its deformable registration onto the planning
 grid and sum. ``Deformable.update_dose`` provides the per-fraction
-warp (Pallas tile-slab kernels); this module sums the contributions
+warp (ops/warp.py); this module sums the contributions
 and registers the result as a first-class Dose so every DVH analytic
 (compute_roi_dose_statistics, compute_dvh_curve, ...) works on the
 accumulated grid unchanged.

@@ -1,5 +1,5 @@
 """Display-state interplay tests: rigid/deformable/dose views, MHD DVF
-branch, Pallas histogram kernel."""
+branch, cumulative DVH counts."""
 
 import numpy as np
 import pytest
@@ -111,12 +111,12 @@ def test_dose_display(tmp_path, rng, pair):
 
 
 def test_pallas_histogram_interpret(rng):
-    from medicalimageanalysis_tpu.ops.pallas_kernels import (
-        dose_below_histogram)
+    """The cumulative DVH counts (dose < t among valid voxels) match a
+    numpy count exactly."""
+    from medicalimageanalysis_tpu.ops.dvh import count_below
     dose = rng.uniform(0, 60, 3000).astype(np.float32)
     valid = (rng.uniform(size=3000) > 0.5).astype(np.float32)
     thr = np.arange(0, 60, 10, dtype=np.float32)
-    out = np.asarray(dose_below_histogram(dose, valid, thr,
-                                          interpret=True))
+    out = np.asarray(count_below(dose, thr, valid))
     gold = np.array([np.sum((dose < t) & (valid > 0)) for t in thr])
-    np.testing.assert_allclose(out, gold)
+    np.testing.assert_array_equal(out, gold)

@@ -352,7 +352,7 @@ def test_mc_path_auto_selection(monkeypatch):
     mask = np.zeros((12, 20, 20), np.uint8)
     mask[3:9, 5:15, 5:15] = 1
 
-    # slow transfers (tunnel-priced): host path
+    # slow transfers: host path
     monkeypatch.setattr(rt, "transfer_rate_bytes_per_s",
                         lambda force=False: 12e6)
     m1 = mc.marching_cubes_mask(mask)

@@ -239,35 +239,24 @@ def test_parallel_preprocess_on_mesh(rng):
 
 
 def test_preprocess_chunked_matches_flat(rng):
-    """The VMEM-friendly lax.map sub-batch split (chunk='auto', engaged
-    for B > 4) must be bit-equal to the flat single-einsum form: the
-    batch axis is never contracted, so per-series arithmetic is
-    identical (scripts/profile_batch_chunked.py for the perf data)."""
+    """The batched preprocess equals running every series on its own:
+    the batch axis is never contracted, so a series' result does not
+    depend on the batch it came in."""
     import jax
-    from medicalimageanalysis_tpu.parallel.batch import (_preproc_chunk,
-                                                         make_preprocess_fn)
-    # resolution logic
-    assert _preproc_chunk(4, "auto") is None      # small stays flat
-    assert _preproc_chunk(8, "auto") == 4
-    assert _preproc_chunk(64, "auto") == 4
-    assert _preproc_chunk(12, "auto") == 4
-    assert _preproc_chunk(18, "auto") == 3
-    assert _preproc_chunk(13, "auto") is None     # prime stays flat
-    assert _preproc_chunk(64, None) is None
-    assert _preproc_chunk(64, 8) == 8
-    assert _preproc_chunk(64, 7) is None          # non-divisor ignored
+    from medicalimageanalysis_tpu.parallel.batch import make_preprocess_fn
 
     raw = rng.integers(0, 3000, size=(12, 8, 32, 32)).astype(np.int16)
     slopes = rng.uniform(0.5, 2.0, 12).astype(np.float32)
     icepts = rng.uniform(-100, 100, 12).astype(np.float32)
-    flat = make_preprocess_fn((8, 32, 32), (8, 16, 16), ffs_op="ax_rot2",
-                              chunk=None)
-    auto = make_preprocess_fn((8, 32, 32), (8, 16, 16), ffs_op="ax_rot2",
-                              chunk="auto")
-    vf, mf = jax.jit(flat)(raw, slopes, icepts)
-    va, ma = jax.jit(auto)(raw, slopes, icepts)
-    np.testing.assert_array_equal(np.asarray(vf), np.asarray(va))
-    np.testing.assert_array_equal(np.asarray(mf), np.asarray(ma))
+    fn = jax.jit(make_preprocess_fn((8, 32, 32), (8, 16, 16),
+                                    ffs_op="ax_rot2"))
+    vb, mb = fn(raw, slopes, icepts)
+    for b in (0, 5, 11):
+        v1, m1 = fn(raw[b:b + 1], slopes[b:b + 1], icepts[b:b + 1])
+        np.testing.assert_allclose(np.asarray(vb)[b], np.asarray(v1)[0],
+                                   rtol=0, atol=1e-4)
+        np.testing.assert_array_equal(np.asarray(mb)[b],
+                                      np.asarray(m1)[0])
 
 
 def test_rf_reader(tmp_path, rng):

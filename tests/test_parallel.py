@@ -150,30 +150,6 @@ def test_gaussian_z_sharded_matches_unsharded(rng):
     np.testing.assert_allclose(out, golden, atol=2e-3)
 
 
-def test_lane_interp_matches_numpy(rng):
-    """Pallas lane-gather interp (interpret mode on CPU) vs numpy."""
-    import numpy as np
-    from medicalimageanalysis_tpu.ops.pallas_kernels import (lane_interp,
-                                                             shear_x)
-    data = rng.normal(size=(37, 64)).astype(np.float32)   # odd R -> pad
-    pos = rng.uniform(-2, 66, size=(37, 64)).astype(np.float32)
-    out = np.asarray(lane_interp(data, pos, interpret=True))
-
-    x0 = np.clip(np.floor(pos), 0, 62)
-    f = pos - x0
-    a = data[np.arange(37)[:, None], x0.astype(int)]
-    b = data[np.arange(37)[:, None], x0.astype(int) + 1]
-    ref = np.where((pos > -0.5) & (pos < 63.5), a * (1 - f) + b * f, 0.0)
-    np.testing.assert_allclose(out, ref, atol=1e-5)
-
-    # 3-D wrapper: identity positions reproduce the volume
-    vol = rng.normal(size=(4, 8, 16)).astype(np.float32)
-    ident = np.broadcast_to(np.arange(16, dtype=np.float32),
-                            (4, 8, 16)).copy()
-    back = np.asarray(shear_x(vol, ident, interpret=True))
-    np.testing.assert_allclose(back, vol, atol=1e-6)
-
-
 def test_demons_z_sharded_matches_single_device(rng):
     """One volume z-sharded over 'space' (loop-invariant halo slab +
     per-iteration smoothing halo + pmax) must match the single-device

@@ -1,6 +1,6 @@
 """Radiomics panel vs brute-force numpy twins.
 
-The device texture-matrix kernels (one-hot MXU counting, log-doubling
+The device texture-matrix kernels (one-hot matmul counting, log-doubling
 run lengths, 26-stencil dependence/gray-tone difference) are verified
 against direct per-voxel Python counting on small random volumes —
 the 'golden numpy twin' pattern used across the suite.

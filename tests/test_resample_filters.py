@@ -147,75 +147,6 @@ def test_batched_morphology(rng):
             ndimage.binary_dilation(masks[b], np.ones((3, 3, 3))))
 
 
-def test_affine_resample_shear_matches_gather(rng):
-    """3-pass shear warp vs direct trilinear gather: interiors agree on
-    smooth volumes; invalid regions get the background fill."""
-    from scipy import ndimage
-    from scipy.spatial.transform import Rotation
-    from medicalimageanalysis_tpu.ops.resample import (
-        affine_resample, affine_resample_shear)
-
-    vol = ndimage.gaussian_filter(
-        rng.normal(size=(24, 32, 40)).astype(np.float32), 2.0)
-    vol /= vol.std()
-    R = Rotation.from_euler("xyz", [8, -12, 15], degrees=True).as_matrix()
-    A = np.eye(4)
-    A[:3, :3] = R
-    A[:3, 3] = [2.5, -1.5, 3.0]
-
-    ref = np.asarray(affine_resample(vol, A, vol.shape, background=-3001))
-    out = np.asarray(affine_resample_shear(vol, A, vol.shape,
-                                           background=-3001))
-    both = (ref > -3000) & (out > -3000)
-    interior = ndimage.binary_erosion(both, iterations=2)
-    assert interior.sum() > 1000
-    d = np.abs(ref - out)[interior]
-    assert d.max() < 0.08      # shear-warp factorization tolerance
-    assert d.mean() < 0.01
-    # masks agree except a thin boundary band
-    assert ((ref > -3000) == (out > -3000)).mean() > 0.93
-
-    # 90-deg rotation has zero pivots -> transparent gather fallback
-    R90 = Rotation.from_euler("z", 90, degrees=True).as_matrix()
-    A90 = np.eye(4); A90[:3, :3] = R90
-    out90 = np.asarray(affine_resample_shear(vol, A90, vol.shape,
-                                             background=0.0))
-    ref90 = np.asarray(affine_resample(vol, A90, vol.shape,
-                                       background=0.0))
-    np.testing.assert_allclose(out90, ref90, atol=1e-5)
-
-
-def test_reslice_transform_shear_flag(rng):
-    """config.use_shear_warp switches reslice_transform to the Pallas
-    shear path; outputs stay close to the exact gather path."""
-    from scipy import ndimage
-    from scipy.spatial.transform import Rotation
-    from medicalimageanalysis_tpu.config import config
-    from medicalimageanalysis_tpu.ops.resample import reslice_transform
-
-    vol = ndimage.gaussian_filter(
-        rng.normal(size=(16, 24, 24)).astype(np.float32), 1.5)
-    T = np.eye(4)
-    T[:3, :3] = Rotation.from_euler("z", 10, degrees=True).as_matrix()
-    T[:3, 3] = [2.0, -1.0, 0.5]
-    kw = dict(vol_matrix=np.eye(3), vol_spacing=[1, 1, 1],
-              vol_origin=[0, 0, 0], phys_transform=T,
-              out_spacing=[1, 1, 1], background=-3001)
-
-    exact = reslice_transform(vol, **kw)
-    config.use_shear_warp = True
-    try:
-        fast = reslice_transform(vol, **kw)
-    finally:
-        config.use_shear_warp = False
-    assert fast["array"].shape == exact["array"].shape
-    np.testing.assert_allclose(fast["origin"], exact["origin"])
-    both = (exact["array"] > -3000) & (fast["array"] > -3000)
-    interior = ndimage.binary_erosion(both, iterations=2)
-    d = np.abs(exact["array"] - fast["array"])[interior]
-    assert d.mean() < 0.02
-
-
 def test_largest_component_batch_matches_scipy(rng):
     """Device label-propagation CC vs host scipy (26-connectivity)."""
     from medicalimageanalysis_tpu.ops.filters import (
@@ -232,62 +163,6 @@ def test_largest_component_batch_matches_scipy(rng):
     for b in range(3):
         golden, _ = largest_component(masks[b])
         assert (out[b] == golden).all()
-
-
-def test_shear_permutation_large_rotation(rng):
-    """The opt-in shear fast lane handles rotations beyond ~60 deg via
-    an input-axis-permutation pre-pass (round-1 review: the path used
-    to silently fall back to the slow gather). Interior agreement with
-    the exact gather stays at the documented smooth-volume level."""
-    from scipy.ndimage import gaussian_filter
-    from scipy.spatial.transform import Rotation
-
-    import jax.numpy as jnp
-
-    from medicalimageanalysis_tpu.ops.resample import (
-        _affine_resample_jit, _permuted_shear_decompose, _shear_decompose,
-        affine_resample_shear)
-
-    vol = gaussian_filter(rng.normal(size=(24, 32, 40)), 2.0) \
-        .astype(np.float32)
-    A = np.eye(4)
-    R = Rotation.from_euler("yx", [95, 12], degrees=True).as_matrix()
-    ctr = np.array([20.0, 16.0, 12.0])
-    A[:3, :3] = R
-    A[:3, 3] = ctr - R @ ctr + [0.3, -0.4, 0.2]
-
-    assert _shear_decompose(A) is None          # direct factorization fails
-    _, _, dec = _permuted_shear_decompose(vol, A)
-    assert dec is not None                      # permutation rescues it
-
-    out = np.asarray(affine_resample_shear(vol, A, vol.shape,
-                                           background=0.0, interpret=True))
-    ref = np.asarray(_affine_resample_jit(jnp.asarray(vol),
-                                          jnp.asarray(A, np.float32),
-                                          vol.shape, jnp.float32(0.0)))
-    inner = (slice(2, -2),) * 3
-    d = np.abs(out[inner] - ref[inner])
-    assert float(d.mean()) < 0.2 * float(vol.std())
-
-    # 80 deg: the direct factorization barely passes its pivot floor
-    # (cos 80 = 0.17) but is ~13x less accurate than the permuted one;
-    # the chooser must prefer the healthiest pivots (round-2 review)
-    A80 = np.eye(4)
-    R80 = Rotation.from_euler("z", 80, degrees=True).as_matrix()
-    A80[:3, :3] = R80
-    A80[:3, 3] = ctr - R80 @ ctr + [0.3, -0.4, 0.2]
-    assert _shear_decompose(A80) is not None  # direct WOULD pass
-    _, _, dec80 = _permuted_shear_decompose(vol, A80)
-    pivots = np.abs([dec80[0][i][0] for i in range(3)])
-    assert pivots.min() > 0.9  # the permuted factorization won
-    out80 = np.asarray(affine_resample_shear(vol, A80, vol.shape,
-                                             background=0.0,
-                                             interpret=True))
-    ref80 = np.asarray(_affine_resample_jit(jnp.asarray(vol),
-                                            jnp.asarray(A80, np.float32),
-                                            vol.shape, jnp.float32(0.0)))
-    d80 = np.abs(out80[inner] - ref80[inner])
-    assert float(d80.mean()) < 0.05 * float(vol.std())
 
 
 def test_bitpack12_roundtrip(rng):

@@ -539,7 +539,7 @@ def test_compute_landmarks_recovers_transform(two_images):
 
 
 def test_resample_to_matches_golden(tmp_path):
-    """Image.resample_to: composed pixel matrix + Pallas affine warp
+    """Image.resample_to: composed pixel matrix + affine warp
     lands on a scipy map_coordinates golden for an interior grid."""
     from scipy import ndimage
 
